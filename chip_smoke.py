@@ -1,33 +1,51 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on one GPU and check it.
+"""Drive the PyTorch/CUDA port's paths once on one GPU and check them.
 
     python3 chip_smoke.py
 
-The main path is the paper's asynchronous master: the discrete-event
-engine (``run_simulation``) running DANA-Zero on flat state through the
-two hand-written CUDA kernels, ``flat_update_batch`` (the batched master
-update) and ``send_view`` (the look-ahead view).  Full width: the MLP
-classifier [2048, 4096, 4096, 10] has 25,214,986 parameters, the size of
-the paper's ImageNet ResNet-50 master state, and 64 workers (the
-paper's largest cluster) hold a 6.46 GB momentum slab; batches of 256
-per worker (16K in total).  Depth is cut to 256 gradients.
+The paths are the paper's asynchronous master: the discrete-event engine
+(``run_simulation``) and the threaded parameter-server cluster
+(``run_cluster``), running DANA-Zero through the hand-written CUDA
+kernels ``flat_update_batch`` (the batched master update), ``send_view``
+(the look-ahead view) and ``dana_master_update`` (the legacy
+per-message round).  Full width: the MLP classifier [2048, 4096, 4096,
+10] has 25,214,986 parameters, the size of the paper's ImageNet
+ResNet-50 master state, and 64 workers (the paper's largest cluster)
+hold a 6.46 GB momentum slab; batches of 256 per worker (16K in total).
+Depth is cut to 256 gradients (engine, deterministic cluster), 512 (free
+cluster) and 64 (legacy kernel path).
 
 Phases (one JSON line each):
   device      the card, its power limit, the CUDA and PyTorch versions
-  build       nvcc builds both kernels from csrc/ (seconds, ptxas report)
-  flat_update_batch / send_view
+  build       nvcc builds every kernel library from csrc/, one nvcc per
+              source, all started together (seconds, ptxas report)
+  flat_update_batch / send_view / dana_master_update
               each kernel against its plain PyTorch version on the same
-              inputs at the main path's shapes and the other modes, with
-              the tolerance stated; CUDA-event times (median of 20) beside
+              inputs at its paths' shapes and the other modes, with the
+              tolerance stated; CUDA-event times (median of 20) beside
               the least time the card could take (bound) and the plain
               version's time
-  main_path   run_simulation with the kernels (launch counts read around
-              it), then the same run on the tree path without kernels:
-              identical event stream, final parameters within 1e-3
-              relative L2, every loss finite
-The last lines: the kernel table as JSON, the card's name and power
-limit, and {"ok": true, "device": {...}}.  Any failed check raises and
-the script exits non-zero; without a CUDA device it exits 2 at once.
+  main_path   run_simulation with the kernels, then the same run on the
+              tree path without kernels: identical event stream, final
+              parameters within 1e-3 relative L2, every loss finite
+  cluster_deterministic
+              run_cluster, deterministic, flat kernel path: final
+              parameters, event stream, telemetry and eval losses bit for
+              bit those of main_path's kernel run
+  cluster_free
+              run_cluster, free mode, coalescing up to 8 messages per
+              flat_update_batch launch, telemetry on: updates/s, the
+              drained-k histogram (some batch must have k > 1), peak
+              device memory, finite losses
+  cluster_legacy
+              run_cluster, deterministic, use_kernel=True, flat=False:
+              dana_master_update once per leaf per message; final
+              parameters bit for bit the tree path's without kernels
+Every path runs with the launch counts set to 0 just before it and read
+just after; a path that did not launch its kernels fails.  The last
+lines: the kernel table as JSON, the card's name and power limit, and
+{"ok": true, "device": {...}}.  Any failed check raises and the script
+exits non-zero; without a CUDA device it exits 2 at once.
 """
 import json
 import subprocess
@@ -43,6 +61,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 DIMS = [2048, 4096, 4096, 10]
 WORKERS = 64
 GRADS = 256
+FREE_GRADS = 512          # cluster_free: gradients through the free cluster
+LEGACY_GRADS = 64         # cluster_legacy: per-message dana_update rounds
 EVAL_EVERY = 64
 LR = 0.01
 BATCH = 256
@@ -59,6 +79,9 @@ BANDWIDTH = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H100": 3.35e12,
 F32_RATE = {"H100 PCIe": 51e12, "H100 NVL": 60e12, "H100": 67e12,
             "H200": 67e12}
 SRC = "src/repro_torch/kernels/flat_update/csrc/flat_update.cu"
+DANA_SRC = "src/repro_torch/kernels/dana_update/csrc/dana_update.cu"
+EXACT = dict(rtol=0.0, atol=0.0)
+BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 
 
 def emit(obj):
@@ -176,7 +199,10 @@ def batch_bytes_ops(rows, n, ids, use_v0, use_u2, use_sent, hat, telemetry,
 
 
 def check_batch(card, label, rows, n, ids, nesterov, use_v0, use_u2,
-                use_sent, hat, telemetry, time_it, seed):
+                use_sent, hat, telemetry, time_it, seed, wire=False):
+    """``wire``: call the kernel as the cluster's master does, with the k
+    gradients as separate buffers (the engine passes one (k, R, 128)
+    tensor).  Each hat must come back in a buffer of its own."""
     from repro_torch.kernels.flat_update.kernel import flat_update_batch
     from repro_torch.kernels.flat_update.ref import (
         flat_master_update_batch_ref)
@@ -186,12 +212,16 @@ def check_batch(card, label, rows, n, ids, nesterov, use_v0, use_u2,
     ka = {x: None if state[x] is None else state[x].clone() for x in names}
     pa = {x: None if state[x] is None else state[x].clone() for x in names}
     del state
-    outs = flat_update_batch(*(ka[x] for x in names), *args, **kw)
     g, ids_np, lrs, gammas, cgs, vscales, hcs = args
+    kargs = ([gj.clone() for gj in g],) + args[1:] if wire else args
+    outs = list(flat_update_batch(*(ka[x] for x in names), *kargs, **kw))
+    if len({h.untyped_storage().data_ptr() for h in outs[5]}) != len(ids):
+        raise AssertionError(f"{label}: hats share buffers")
+    outs[5] = torch.stack(outs[5])
     ref = flat_master_update_batch_ref(
         *(pa[x] for x in names), None, g, ids_np, lrs, None, gammas, cgs,
         vscales, hcs=hcs, **kw)
-    ref = ref[:5] + ref[6:]
+    ref = ref[:5] + (torch.stack(ref[6]), ref[7])
     torch.cuda.synchronize()
     tol = WEIGHTED_TOL if hat == "weighted" else ELEM_TOL
     err = 0.0
@@ -205,7 +235,7 @@ def check_batch(card, label, rows, n, ids, nesterov, use_v0, use_u2,
            "tolerance": tol}
     if time_it:
         st = [ka[x] for x in names]
-        rec["ms"] = time_ms(lambda: flat_update_batch(*st, *args, **kw))
+        rec["ms"] = time_ms(lambda: flat_update_batch(*st, *kargs, **kw))
         pst = [pa[x] for x in names]
         rec["plain_ms"] = time_ms(lambda: flat_master_update_batch_ref(
             *pst, None, g, ids_np, lrs, None, gammas, cgs, vscales,
@@ -229,6 +259,13 @@ def phase_flat_update(card):
     recs["main"] = check_batch(card, "dana-zero k=1 (main path)", R_FULL,
                                WORKERS, [17], False, True, False, False,
                                "v0", False, time_it=True, seed=99)
+    torch.cuda.empty_cache()
+    # the cluster master's call: k=8 drained messages, telemetry on,
+    # separate gradient buffers in, one buffer per reply view out
+    recs["cluster"] = check_batch(
+        card, "dana-zero k=8 telemetry, cluster wire (cluster_free path)",
+        R_FULL, WORKERS, IDS8, False, True, False, False, "v0", True,
+        time_it=True, seed=98, wire=True)
     torch.cuda.empty_cache()
     return recs
 
@@ -288,14 +325,81 @@ def phase_send_view(card):
     return recs
 
 
+# -- dana_master_update ------------------------------------------------
+def mlp_shapes():
+    """The main path's leaves in flatten order: per layer b, then w."""
+    out = []
+    for d_in, d_out in zip(DIMS[:-1], DIMS[1:]):
+        out += [(d_out,), (d_in, d_out)]
+    return out
+
+
+def check_dana(card, label, shapes, dtype, tol, seed, offset=0):
+    """The tree wrapper (one launch per leaf) against the plain version
+    on the same leaves; times are for the whole tree (one message).
+    ``offset`` > 0 starts every leaf that many elements into its buffer
+    (pointers not 16-byte aligned)."""
+    from repro_torch.kernels.dana_update import (dana_master_update,
+                                                 dana_master_update_ref)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def tree(scale):
+        return [torch.randn(int(np.prod(s)) + offset, generator=gen,
+                            device="cuda").mul_(scale).to(dtype)[offset:]
+                .view(s) for s in shapes]
+
+    theta, v_i, g = tree(1.0), tree(0.1), tree(1.0)
+    v0 = [a * 8 for a in tree(0.1)]
+    lr, gamma = np.float32(LR), np.float32(0.9)
+    outs = dana_master_update(theta, v_i, v0, g, lr, gamma)
+    refs = [dana_master_update_ref(*xs, lr, gamma)
+            for xs in zip(theta, v_i, v0, g)]
+    torch.cuda.synchronize()
+    err = 0.0
+    for j, name in enumerate(("theta", "v_i", "v0", "hat")):
+        for a, r in zip(outs[j], refs):
+            if a.dtype != dtype:
+                raise AssertionError(f"{label} {name}: dtype {a.dtype}")
+            err = max(err, max_err(a.float(), r[j].float(), tol,
+                                   f"dana_master_update {label} {name}"))
+    n = sum(int(np.prod(s)) for s in shapes)
+    nbytes = 8 * n * (4 if dtype == torch.float32 else 2)
+    rec = {"phase": "dana_master_update", "mode": label,
+           "dtype": str(dtype).split(".")[-1], "elements": n,
+           "leaves": len(shapes), "max_abs_err": err, "tolerance": tol,
+           "ms": time_ms(lambda: dana_master_update(theta, v_i, v0, g, lr,
+                                                    gamma)),
+           "plain_ms": time_ms(lambda: [dana_master_update_ref(
+               *xs, lr, gamma) for xs in zip(theta, v_i, v0, g)]),
+           "bytes": nbytes, "library_ms": None}
+    rec["bound_ms"], rec["bound_by"] = card.bound(nbytes, 7 * n)
+    emit(rec)
+    return rec
+
+
+def phase_dana_update(card):
+    recs = {"main": check_dana(card, "MLP leaves (cluster_legacy path)",
+                               mlp_shapes(), torch.float32, EXACT, 21)}
+    torch.cuda.empty_cache()
+    for label, dtype, tol in (("f32", torch.float32, EXACT),
+                              ("bf16", torch.bfloat16, BF16_TOL)):
+        recs[label] = check_dana(card, f"R={R_FULL} {label}",
+                                 [(R_FULL, 128)], dtype, tol, 22)
+        torch.cuda.empty_cache()
+    # ragged leaves: the float4 body with a scalar tail; then the same
+    # leaves with pointers that are not 16-byte aligned (all scalar)
+    for offset in (0, 1):
+        check_dana(card, f"ragged, offset {offset}",
+                   [(1,), (17,), (1000,), (3, 5)], torch.float32, EXACT,
+                   23, offset=offset)
+    return recs
+
+
 # -- the main path -------------------------------------------------------
-def main_path():
-    """The main path's configuration (also profiled by
-    ``scripts/torch_profile_main_path.py``): returns (params0, run), where
-    ``run(use_kernel, grads=GRADS)`` drives ``run_simulation`` once on the
-    card and returns (history, wall seconds)."""
+def configuration():
+    """The full-width configuration every path runs: (task, grad_fn,
+    eval_fn, params0, algo) on the card."""
     from repro_torch.core.algorithms import make_algorithm
-    from repro_torch.core.engine import SimulationConfig, run_simulation
     from repro_torch.core.types import HyperParams
     from repro_torch.data.synthetic import ClassificationTask
     from repro_torch.models.toy import make_classifier_fns
@@ -306,6 +410,17 @@ def main_path():
     eval_fn = make_eval(task.eval_batch())
     params0 = init(np.random.default_rng(0), device="cuda")
     algo = make_algorithm("dana-zero", HyperParams(lr=LR, momentum=0.9))
+    return task, grad_fn, eval_fn, params0, algo
+
+
+def main_path(conf=None):
+    """The engine's run (also profiled by
+    ``scripts/torch_profile_main_path.py``): returns (params0, run), where
+    ``run(use_kernel, grads=GRADS)`` drives ``run_simulation`` once on the
+    card and returns (history, wall seconds)."""
+    from repro_torch.core.engine import SimulationConfig, run_simulation
+
+    task, grad_fn, eval_fn, params0, algo = conf or configuration()
 
     def run(use_kernel, grads=GRADS):
         cfg = SimulationConfig(num_workers=WORKERS, total_grads=grads,
@@ -321,12 +436,14 @@ def main_path():
     return params0, run
 
 
-def phase_main_path():
+def phase_main_path(conf):
+    """The engine on the flat kernel path and on the tree path; returns
+    (record, the kernel path's history and final parameters)."""
     from repro_torch.core.flat import FlatSpec
     from repro_torch.core.types import tree_leaves
-    from repro_torch.kernels.flat_update import launches, reset_launches
+    from repro_torch.kernels import launches, reset_launches
 
-    params0, run = main_path()
+    params0, run = main_path(conf)
     spec = FlatSpec.from_tree(params0)
     n_params = spec.n_elems
     if spec.rows != R_FULL:
@@ -380,6 +497,126 @@ def phase_main_path():
     if rel > 1e-3:
         raise AssertionError(f"kernel path and tree path disagree: "
                              f"relative L2 {rel}")
+    return rec, hist_k, final_k
+
+
+# -- the threaded cluster --------------------------------------------------
+def run_cluster_once(conf, **kw):
+    """One ``run_cluster`` at full width with the launch counts set to 0
+    just before it and read just after; returns (history, stats, counts,
+    wall seconds, peak device bytes)."""
+    from repro_torch.cluster import ClusterConfig, run_cluster
+    from repro_torch.kernels import launches, reset_launches
+
+    task, grad_fn, eval_fn, params0, algo = conf
+    kw.setdefault("eval_every", EVAL_EVERY)
+    cfg = ClusterConfig(num_workers=WORKERS, device="cuda", **kw)
+    stats = {}
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    hist = run_cluster(algo, grad_fn, params0, task.batch, cfg, eval_fn,
+                       stats_out=stats)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return (hist, stats, launches(), secs,
+            torch.cuda.max_memory_allocated())
+
+
+def cluster_record(phase, hist, stats, counts, secs, peak):
+    from repro_torch.core.types import tree_leaves
+    finite = (all(np.isfinite(hist.eval_loss)) and hist.eval_loss
+              and all(bool(torch.isfinite(l).all())
+                      for l in tree_leaves(hist.final_params)))
+    if not finite:
+        raise AssertionError(f"{phase}: non-finite losses or parameters")
+    return {"phase": phase, "seconds": secs,
+            "updates_per_s": stats["updates_per_s"],
+            "steady_updates_per_s": stats["steady_updates_per_s"],
+            "master_busy_s": stats["master_busy_s"],
+            "master_updates_per_s": stats["master_updates_per_s"],
+            "coalesce_counts": stats["coalesce_counts"],
+            "mean_coalesce": stats["mean_coalesce"], "launches": counts,
+            "peak_mem_gb": peak / 1e9, "eval_step": hist.eval_step,
+            "eval_loss": hist.eval_loss, "mean_lag": hist.mean_lag(),
+            "mean_gap": hist.mean_gap()}
+
+
+def phase_cluster_deterministic(conf, hist_e, final_e):
+    """The deterministic cluster on the flat kernel path: bit for bit
+    the engine's kernel-path run of ``phase_main_path``."""
+    from repro_torch.core.types import tree_leaves
+    hist, stats, counts, secs, peak = run_cluster_once(
+        conf, mode="deterministic", total_grads=GRADS, use_kernel=True)
+    rec = cluster_record("cluster_deterministic", hist, stats, counts,
+                         secs, peak)
+    same = {key: getattr(hist, key) == getattr(hist_e, key)
+            for key in ("time", "worker", "lag", "step", "gap",
+                        "grad_norm", "eval_loss")}
+    final = tree_leaves(hist.final_params)
+    rec["final_params_bit_equal_to_engine"] = all(
+        torch.equal(a, b) for a, b in zip(final, final_e))
+    rec["equal_to_engine"] = same
+    emit(rec)
+    if (counts["flat_update_batch"] != GRADS
+            or counts["send_view"] < WORKERS):
+        raise AssertionError(f"cluster_deterministic did not run through "
+                             f"the kernels: {counts}")
+    if not (rec["final_params_bit_equal_to_engine"] and all(same.values())):
+        raise AssertionError("cluster_deterministic differs from the "
+                             "engine's kernel path")
+    return rec
+
+
+def phase_cluster_free(conf):
+    """Free mode, coalescing up to 8 messages, telemetry on."""
+    hist, stats, counts, secs, peak = run_cluster_once(
+        conf, mode="free", total_grads=FREE_GRADS, coalesce=8,
+        record_telemetry=True)
+    rec = cluster_record("cluster_free", hist, stats, counts, secs, peak)
+    emit(rec)
+    batches = sum(stats["coalesce_counts"].values())
+    if (stats["applied"] != FREE_GRADS or len(hist.gap) != FREE_GRADS
+            or counts["flat_update_batch"] != batches):
+        raise AssertionError(f"cluster_free: {stats['applied']} applied, "
+                             f"{len(hist.gap)} telemetry rows, {counts}")
+    if max(stats["coalesce_counts"]) < 2:
+        raise AssertionError("cluster_free drained no batch with k > 1")
+    return rec
+
+
+def phase_cluster_legacy(conf):
+    """The legacy per-message dana_update path (use_kernel=True,
+    flat=False) against the tree path without kernels."""
+    from repro_torch.core.types import tree_leaves
+    hist, stats, counts, secs, peak = run_cluster_once(
+        conf, mode="deterministic", total_grads=LEGACY_GRADS,
+        use_kernel=True, flat=False)
+    rec = cluster_record("cluster_legacy", hist, stats, counts, secs, peak)
+    final_l = [l.clone() for l in tree_leaves(hist.final_params)]
+    events_l = [getattr(hist, k) for k in ("time", "worker", "lag", "gap")]
+    del hist
+    hist_t, _, counts_t, secs_t, _ = run_cluster_once(
+        conf, mode="deterministic", total_grads=LEGACY_GRADS,
+        use_kernel=False)
+    final_t = tree_leaves(hist_t.final_params)
+    rec["tree_path_seconds"] = secs_t
+    rec["tree_path_launches"] = counts_t
+    rec["max_abs_diff_vs_tree_path"] = max(
+        float((a - b).abs().max()) for a, b in zip(final_l, final_t))
+    rec["events_equal_to_tree_path"] = events_l == [
+        getattr(hist_t, k) for k in ("time", "worker", "lag", "gap")]
+    emit(rec)
+    leaves = len(final_l)
+    if (counts["dana_master_update"] != leaves * LEGACY_GRADS
+            or counts["flat_update_batch"] or any(counts_t.values())):
+        raise AssertionError(f"cluster_legacy launches: {counts}, tree "
+                             f"path {counts_t}")
+    if rec["max_abs_diff_vs_tree_path"] != 0.0 or \
+            not rec["events_equal_to_tree_path"]:
+        raise AssertionError("cluster_legacy differs from the tree path")
     return rec
 
 
@@ -389,7 +626,7 @@ def main():
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from repro_torch.kernels.flat_update import _build
+    from repro_torch.kernels import _build, dana_update, flat_update  # noqa: F401
     card = Card()
     emit({"phase": "device", "nvidia_smi": card.smi, "kind": card.name,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
@@ -397,29 +634,47 @@ def main():
           "python": sys.version.split()[0],
           "peak_bandwidth_Bps": card.bw, "peak_f32_flops": card.f32})
     t0 = time.perf_counter()
-    _build.build()
-    _build.load()
+    _build.build_all()             # one nvcc per source, all at once
+    for lib in _build.LIBRARIES:
+        lib.load()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "nvcc_seconds": _build.BUILD_INFO.get("seconds"),
-          "ptxas": [ln for ln in _build.BUILD_INFO.get("ptxas", "")
-                    .splitlines() if "registers" in ln or "spill" in ln]})
+          "libraries": {lib.name: {
+              "nvcc_seconds": lib.info.get("seconds"),
+              "ptxas": [ln for ln in lib.info.get("ptxas", "").splitlines()
+                        if "registers" in ln or "spill" in ln]}
+              for lib in _build.LIBRARIES}})
     fu = phase_flat_update(card)
     sv = phase_send_view(card)
-    main_rec = phase_main_path()
+    du = phase_dana_update(card)
+    conf = configuration()
+    main_rec, hist_e, final_e = phase_main_path(conf)
+    paths = {"main_path": main_rec,
+             "cluster_deterministic": phase_cluster_deterministic(
+                 conf, hist_e, final_e)}
+    del hist_e, final_e
+    paths["cluster_free"] = phase_cluster_free(conf)
+    paths["cluster_legacy"] = phase_cluster_legacy(conf)
     kernels = []
-    for name, rec, replaces in (
-            ("flat_update_batch", fu["main"],
+    for name, rec, path, src, replaces in (
+            ("flat_update_batch", fu["main"], "main_path", SRC,
              "src/repro/kernels/flat_update/kernel.py:226"),
-            ("send_view", sv["main"],
-             "src/repro/kernels/flat_update/send.py:86")):
+            ("send_view", sv["main"], "main_path", SRC,
+             "src/repro/kernels/flat_update/send.py:86"),
+            ("dana_master_update", du["main"], "cluster_legacy", DANA_SRC,
+             "src/repro/kernels/dana_update/kernel.py:42")):
         kernels.append({
-            "name": name, "route": "cuda", "source": SRC,
-            "replaces": replaces, "launches": main_rec["launches"][name],
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces,
+            "launches": paths[path]["launches"][name],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"],
-            "library_ms": rec.get("library_ms")})
+            "library_ms": rec.get("library_ms"),
+            "launches_by_path": {p: r["launches"][name]
+                                 for p, r in paths.items()}})
     kernels[0]["also_replaces"] = "src/repro/kernels/flat_update/kernel.py:497"
+    for key in ("ms", "bound_ms", "plain_ms", "max_abs_err"):
+        kernels[0][f"{key}_k8_cluster_wire"] = fu["cluster"][key]
     emit({"kernels": kernels})
     print(card.smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": card.name,

@@ -30,7 +30,7 @@ class History:
     # engine and the cluster runtime; the backend-equivalence tests compare
     # these bit-for-bit)
     final_params: Any = None
-    # optional metrics tap (``repro.obs.metrics.history_observer``):
+    # optional metrics tap (``repro_torch.obs.metrics.history_observer``):
     # because BOTH backends funnel every telemetry row through
     # ``record``, hooking here makes their metrics comparable by
     # construction

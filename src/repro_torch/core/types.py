@@ -27,39 +27,42 @@ Pytree = Any
 _LEAF = None          # treedef marker of a leaf
 
 
+def _flatten(x, leaves: list):
+    if isinstance(x, dict):
+        keys = tuple(sorted(x))
+        return ("dict", keys, tuple(_flatten(x[k], leaves) for k in keys))
+    if isinstance(x, (list, tuple)):
+        return (type(x), None, tuple(_flatten(c, leaves) for c in x))
+    if x is None:
+        return ("none", None, ())
+    leaves.append(x)
+    return _LEAF
+
+
 def tree_flatten(tree: Pytree):
-    """(leaves, treedef) in JAX's flatten order (sorted dict keys)."""
-    leaves = []
+    """(leaves, treedef) in JAX's flatten order (sorted dict keys).
 
-    def rec(x):
-        if isinstance(x, dict):
-            keys = tuple(sorted(x))
-            return ("dict", keys, tuple(rec(x[k]) for k in keys))
-        if isinstance(x, (list, tuple)):
-            return (type(x), None, tuple(rec(c) for c in x))
-        if x is None:
-            return ("none", None, ())
-        leaves.append(x)
-        return _LEAF
-
-    treedef = rec(tree)
+    The recursion is a module-level function, not a closure over the
+    leaves: a recursive closure is a reference cycle, and it would keep
+    every leaf tensor alive until the cyclic garbage collector ran."""
+    leaves: list = []
+    treedef = _flatten(tree, leaves)
     return leaves, treedef
 
 
+def _unflatten(d, it):
+    if d is _LEAF:
+        return next(it)
+    kind, keys, children = d
+    if kind == "dict":
+        return {k: _unflatten(c, it) for k, c in zip(keys, children)}
+    if kind == "none":
+        return None
+    return kind(_unflatten(c, it) for c in children)
+
+
 def tree_unflatten(treedef, leaves) -> Pytree:
-    it = iter(leaves)
-
-    def rec(d):
-        if d is _LEAF:
-            return next(it)
-        kind, keys, children = d
-        if kind == "dict":
-            return {k: rec(c) for k, c in zip(keys, children)}
-        if kind == "none":
-            return None
-        return kind(rec(c) for c in children)
-
-    return rec(treedef)
+    return _unflatten(treedef, iter(leaves))
 
 
 def tree_leaves(tree: Pytree) -> list:

@@ -43,6 +43,13 @@
 // bit for bit on the card, and only the N-way weighted sums differ from
 // the plain versions' tensordot by summation order.
 //
+// Gradients and hats come as tables of k device pointers, one (R,128)
+// buffer per message, in one device block with the per-message scalars
+// (the wrapper uploads it with one copy).  A batch's gradients therefore
+// need no stacking copy, and each reply view can own its storage: a
+// reply kept by one worker does not pin the other k-1 views of its
+// batch.
+//
 // Offsets are size_t: N*R*128 exceeds 2^31 at the paper's state size.
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -68,12 +75,13 @@ __device__ __forceinline__ void store4(float* p, size_t e, const float* x) {
   reinterpret_cast<float4*>(p)[e] = make_float4(x[0], x[1], x[2], x[3]);
 }
 
-// scal is one (6, k) block: row 0 the worker ids (int32 bits), then
-// lr, gamma, cg, vscale and the hat coefficient per message.
+// gs / hats: k pointers each; scal is one (6, k) block: row 0 the
+// worker ids (int32 bits), then lr, gamma, cg, vscale and the hat
+// coefficient per message.
 __global__ void flat_update_batch_kernel(
     float* theta, float* v, float* v0, float* u2, float* sent,
-    const float* __restrict__ g, const float* __restrict__ scal,
-    const float* __restrict__ weights, float* __restrict__ hats,
+    const float* const* __restrict__ gs, float* const* __restrict__ hats,
+    const float* __restrict__ scal, const float* __restrict__ weights,
     float* __restrict__ pres, size_t e4, int n, int k, Flags f) {
   const int* ids = reinterpret_cast<const int*>(scal);
   const float* lrs = scal + k;
@@ -97,7 +105,7 @@ __global__ void flat_update_batch_kernel(
       if (pres) store4(pres, msg, th);
       float vi[4], gj[4], vn[4], den[4], hat[4];
       load4(v, row, vi);
-      load4(g, msg, gj);
+      load4(gs[j], e, gj);
       if (sent) {
         float si[4];
         load4(sent, row, si);
@@ -162,7 +170,7 @@ __global__ void flat_update_batch_kernel(
 #pragma unroll
         for (int c = 0; c < 4; ++c) hat[c] = (-hc) * ws[c] + th[c];
       }
-      store4(hats, msg, hat);
+      store4(hats[j], e, hat);
       if (sent) store4(sent, row, f.sent_view ? hat : th);
     }
     store4(theta, e, th);
@@ -209,12 +217,14 @@ int blocks_for(size_t e4) {
 
 }  // namespace
 
-// rows: R (the row count; R*128 elements per flat buffer).  Pointers to
-// absent optional buffers are null.  Returns cudaGetLastError().
+// rows: R (the row count; R*128 elements per flat buffer).  block: k
+// gradient pointers, k hat pointers (8 bytes each), then the (6, k) f32
+// scalars.  Pointers to absent optional buffers are null.  Returns
+// cudaGetLastError().
 extern "C" int flat_update_batch(float* theta, float* v, float* v0,
-                                 float* u2, float* sent, const float* g,
-                                 const float* scal, const float* weights,
-                                 float* hats, float* pres, long long rows,
+                                 float* u2, float* sent, const void* block,
+                                 const float* weights, float* pres,
+                                 long long rows,
                                  int n, int k, int nesterov, int adaptive,
                                  int dc, float dc_lambda, int sent_view,
                                  int hat_mode, float b2, float one_minus_b2,
@@ -222,8 +232,12 @@ extern "C" int flat_update_batch(float* theta, float* v, float* v0,
   const size_t e4 = (size_t)rows * 32;
   Flags f{nesterov, adaptive, dc, sent_view, hat_mode,
           dc_lambda, b2, one_minus_b2, eps};
+  const char* b = static_cast<const char*>(block);
+  const float* const* gs = reinterpret_cast<const float* const*>(b);
+  float* const* hats = reinterpret_cast<float* const*>(b + 8 * (size_t)k);
+  const float* scal = reinterpret_cast<const float*>(b + 16 * (size_t)k);
   flat_update_batch_kernel<<<blocks_for(e4), kThreads, 0, (cudaStream_t)stream>>>(
-      theta, v, v0, u2, sent, g, scal, weights, hats, pres, e4, n, k, f);
+      theta, v, v0, u2, sent, gs, hats, scal, weights, pres, e4, n, k, f);
   return (int)cudaGetLastError();
 }
 

@@ -10,9 +10,13 @@ and has no limit on the worker count, so there is one entry point and no
 routing.
 
 The wrapper validates every tensor (CUDA, float32, contiguous, shapes),
-uploads the per-message scalars as ONE small (6, k) block, allocates the
-outputs, launches on the current stream and raises on a launch error.
-The state (theta, v, v0, u2, sent) is updated in place.
+uploads the gradient and hat pointer tables and the per-message scalars
+as ONE small block, allocates the outputs, launches on the current
+stream and raises on a launch error.  The state (theta, v, v0, u2,
+sent) is updated in place.  The k gradients may be one (k, R, 128)
+tensor or k separate (R, 128) tensors (no stacking copy); the k hats
+come back as k (R, 128) tensors that each own their storage, so a
+reply view that outlives its batch pins only itself.
 """
 from __future__ import annotations
 
@@ -36,6 +40,8 @@ def _check(name, x, shape, device):
                          f"{tuple(shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned (float4 access)")
 
 
 def _ptr(x):
@@ -48,11 +54,13 @@ def flat_update_batch(theta, v, v0, u2, sent, g, ids, lrs, gammas, cgs,
                       sent_view: bool = False, hat_mode: str = "theta",
                       weights=None, telemetry: bool = False):
     """Launch the kernel: theta (R,128), v (N,R,128), v0/u2 (R,128) or
-    None, sent (N,R,128) or None, g (k,R,128), all float32 on one CUDA
-    device; ids (k,) host ints in [0, N); lrs/gammas/cgs/vscales/hcs (k,)
-    host f32; weights (k, N) host f32 for hat_mode "weighted".
+    None, sent (N,R,128) or None, g (k,R,128) or k (R,128) tensors, all
+    float32 on one CUDA device; ids (k,) host ints in [0, N);
+    lrs/gammas/cgs/vscales/hcs (k,) host f32; weights (k, N) host f32 for
+    hat_mode "weighted".
 
-    Returns (theta, v, v0, u2, sent, hats (k,R,128), pres or None).
+    Returns (theta, v, v0, u2, sent, hats (a list of k (R,128)
+    tensors), pres (k,R,128) or None).
     """
     dev = theta.device
     if dev.type != "cuda":
@@ -60,10 +68,12 @@ def flat_update_batch(theta, v, v0, u2, sent, g, ids, lrs, gammas, cgs,
     if theta.dim() != 2:
         raise ValueError(f"theta must be (R, 128), got {tuple(theta.shape)}")
     r = theta.shape[0]
-    n, k = v.shape[0], g.shape[0]
+    gs = list(g)
+    n, k = v.shape[0], len(gs)
     _check("theta", theta, (r, 128), dev)
     _check("v", v, (n, r, 128), dev)
-    _check("g", g, (k, r, 128), dev)
+    for j, gj in enumerate(gs):
+        _check(f"g[{j}]", gj, (r, 128), dev)
     if v0 is not None:
         _check("v0", v0, (r, 128), dev)
     if u2 is not None:
@@ -79,12 +89,19 @@ def flat_update_batch(theta, v, v0, u2, sent, g, ids, lrs, gammas, cgs,
     ids = np.asarray(ids)
     if ids.shape != (k,) or ids.min() < 0 or ids.max() >= n:
         raise ValueError(f"ids must be ({k},) in [0, {n}), got {ids}")
-    scal = np.empty((6, k), np.float32)
+    hats = [torch.empty((r, 128), dtype=torch.float32, device=dev)
+            for _ in range(k)]
+    # one block: k gradient pointers, k hat pointers, (6, k) scalars
+    block = np.empty(40 * k, np.uint8)
+    ptrs = block[:16 * k].view(np.int64)
+    ptrs[:k] = [gj.data_ptr() for gj in gs]
+    ptrs[k:] = [h.data_ptr() for h in hats]
+    scal = block[16 * k:].view(np.float32).reshape(6, k)
     scal[0].view(np.int32)[:] = ids
     for row, x in enumerate((lrs, gammas, cgs, vscales, hcs), start=1):
         scal[row] = np.asarray(x, np.float32)
     # pinned + non_blocking: the upload does not wait for the stream
-    scal_d = torch.from_numpy(scal).pin_memory().to(dev, non_blocking=True)
+    block_d = torch.from_numpy(block).pin_memory().to(dev, non_blocking=True)
     w_d = None
     if hat_mode == "weighted":
         w = np.asarray(weights, np.float32)
@@ -92,19 +109,18 @@ def flat_update_batch(theta, v, v0, u2, sent, g, ids, lrs, gammas, cgs,
             raise ValueError(f"weights must be ({k}, {n}), got {w.shape}")
         w_d = torch.from_numpy(np.ascontiguousarray(w)).pin_memory().to(
             dev, non_blocking=True)
-    hats = torch.empty((k, r, 128), dtype=torch.float32, device=dev)
     pres = (torch.empty((k, r, 128), dtype=torch.float32, device=dev)
             if telemetry else None)
     lib = _build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.flat_update_batch(
-            _ptr(theta), _ptr(v), _ptr(v0), _ptr(u2), _ptr(sent), _ptr(g),
-            _ptr(scal_d), _ptr(w_d), _ptr(hats), _ptr(pres), r, n, k,
+            _ptr(theta), _ptr(v), _ptr(v0), _ptr(u2), _ptr(sent),
+            _ptr(block_d), _ptr(w_d), _ptr(pres), r, n, k,
             int(nesterov), int(u2 is not None), int(dc_lambda is not None),
             0.0 if dc_lambda is None else float(dc_lambda), int(sent_view),
             HAT_MODES[hat_mode], float(b2), float(1 - b2), float(eps),
             stream)
     _build.check(rc, "flat_update_batch")
-    _build.LAUNCHES["flat_update_batch"] += 1
+    _build.count("flat_update_batch")
     return theta, v, v0, u2, sent, hats, pres

@@ -167,8 +167,8 @@ def flat_master_update_batch(theta, v, v0, u2, sent, g, ids, lrs, gammas,
                              telemetry=False):
     """The batched update on the state's device: the CUDA kernel for
     CUDA tensors (or an error), the plain version for CPU tensors.
-    Updates the state in place; returns (theta, v, v0, u2, sent, hats,
-    pres or None)."""
+    Updates the state in place; returns (theta, v, v0, u2, sent, hats (k
+    tensors, each its own buffer), pres or None)."""
     if theta.device.type == "cuda":
         return flat_update_batch(
             theta, v, v0, u2, sent, g, ids, lrs, gammas, cgs, vscales, hcs,
@@ -312,13 +312,14 @@ class FlatAlgorithm:
                     telemetry: bool = False):
         """Apply k packed messages in one batched update.
 
-        ids (k,) host ints; g_flat (k, R, 128) packed gradients on the
-        state's device; ``nows`` (message timestamps) feeds only the
-        rate-weighted member, which is not ported yet.
-        Returns (flat', hats (k,R,128), thetas_pre or None); the row
-        buffers of ``flat`` are updated in place.
+        ids (k,) host ints; g_flat (k, R, 128) or k (R, 128) packed
+        gradients on the state's device; ``nows`` (message timestamps)
+        feeds only the rate-weighted member, which is not ported yet.
+        Returns (flat', hats, thetas_pre (k,R,128) or None): hats are k
+        (R,128) tensors that each own their storage (reply views outlive
+        their batch); the row buffers of ``flat`` are updated in place.
         """
-        k = g_flat.shape[0]
+        k = len(g_flat)
         ids = np.asarray(ids, np.int64).reshape(k)
         if self.fam.shared_momentum:
             ids = np.zeros_like(ids)             # one shared slab row

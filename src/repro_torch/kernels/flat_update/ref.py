@@ -78,21 +78,22 @@ def flat_master_update_batch_ref(theta, v, v0, u2, sent, avg_step, g, ids,
                                  hat_mode: str | None = None,
                                  hcs=None, weights=None):
     """theta (R,128); v (N,R,128); v0/u2 (R,128) or None; sent (N,R,128)
-    or None; g (k,R,128); ids (k,) ints; lrs/lrs_next/gammas/cgs/vscales
-    (k,) host f32; hcs (k,) host f32 hat coefficients or None; weights
-    (k, N) host f32 weights (hat_mode "weighted" only).  The argument
+    or None; g (k,R,128) or k (R,128) tensors; ids (k,) ints;
+    lrs/lrs_next/gammas/cgs/vscales (k,) host f32; hcs (k,) host f32 hat
+    coefficients or None; weights (k, N) host f32 weights (hat_mode
+    "weighted" only).  The argument
     list is the JAX reference's (avg_step, gap_ema and n_elems belong to
     the gap-aware branch).
 
-    Returns (theta', v', v0', u2', sent', avg_step, hats (k,R,128),
-    thetas_pre or None); the state tensors are the inputs, updated in
-    place.
+    Returns (theta', v', v0', u2', sent', avg_step, hats (a list of k
+    (R,128) tensors, each its own buffer), thetas_pre (k,R,128) or
+    None); the state tensors are the inputs, updated in place.
     """
     if gap_aware:
         raise NotImplementedError(
             "the gap-aware update (ga-asgd) is not ported yet: ROADMAP.md "
             "kernel B3")
-    k = g.shape[0]
+    k = len(g)
     track_v0 = v0 is not None
     adaptive = u2 is not None
     if hat_mode is None:
@@ -156,7 +157,6 @@ def flat_master_update_batch_ref(theta, v, v0, u2, sent, avg_step, g, ids,
         if sent is not None:
             sent[i] = hat if sent_view else theta
         hats.append(hat)
-    hats = torch.stack(hats)
     pres = torch.stack(pres) if telemetry else None
     # in place, like the kernel (and the donated JAX pass)
     theta_in.copy_(theta)

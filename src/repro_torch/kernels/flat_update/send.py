@@ -54,7 +54,7 @@ def _send_view_cuda(theta, slab, w, c, u2, eps):
         rc = lib.send_view(_ptr(theta), _ptr(slab), _ptr(w), float(c),
                            _ptr(u2), float(eps), _ptr(out), r, n, stream)
     _build.check(rc, "send_view")
-    _build.LAUNCHES["send_view"] += 1
+    _build.count("send_view")
     return out
 
 

@@ -82,3 +82,32 @@ def make_classifier_fns(dims, weight_decay: float = 0.0):
         return eval_fn
 
     return init, grad_fn, make_eval
+
+
+class ClassifierGradFn:
+    """The MLP classifier's gradient as a picklable object.
+
+    It carries only ``(dims, weight_decay)`` and builds the gradient
+    function lazily, matching the JAX package's ``ClassifierGradFn``
+    (whose process backend pickles it into every worker; the port's
+    process backend is not ported yet, ROADMAP.md).
+    """
+
+    def __init__(self, dims, weight_decay: float = 0.0):
+        self.dims = tuple(int(d) for d in dims)
+        self.weight_decay = float(weight_decay)
+        self._grad = None
+
+    def __getstate__(self):
+        return {"dims": self.dims, "weight_decay": self.weight_decay}
+
+    def __setstate__(self, state):
+        self.dims = state["dims"]
+        self.weight_decay = state["weight_decay"]
+        self._grad = None
+
+    def __call__(self, params, batch):
+        if self._grad is None:
+            self._grad = make_classifier_fns(self.dims,
+                                             self.weight_decay)[1]
+        return self._grad(params, batch)

@@ -213,3 +213,24 @@ def test_tree_set_index_writes_in_place_and_index_is_a_view():
     out = tree_set_index(v, 1, {"a": torch.ones(2)})
     assert out is v and float(v["a"][1].sum()) == 2.0
     assert float(old["a"].sum()) == 2.0 and float(row["a"].sum()) == 2.0
+
+
+def test_tree_utilities_free_their_results_without_the_cyclic_gc():
+    """A tree built by the utilities dies with its last reference: no
+    reference cycle keeps its leaves (the master's reply views, the
+    workers' gradients) alive until a garbage collection."""
+    import gc
+    import weakref
+    was_enabled = gc.isenabled()
+    gc.disable()
+    try:
+        x = {"a": torch.zeros(1000), "b": [torch.zeros(10), None]}
+        y = tree_map(lambda t: t + 1, x)
+        leaves, treedef = tree_flatten(y)
+        z = tree_unflatten(treedef, [t * 2 for t in leaves])
+        refs = [weakref.ref(t) for t in tree_leaves(y) + tree_leaves(z)]
+        del y, z, leaves
+        assert all(r() is None for r in refs)
+    finally:
+        if was_enabled:
+            gc.enable()

@@ -26,6 +26,20 @@ def _port_modules():
     return mods
 
 
+# the threaded cluster's slice: obs, cluster, the legacy dana_update
+# kernel, the shared kernel loader and the cluster CLI
+NEW_IN_SLICE_2 = (
+    "repro_torch.obs", "repro_torch.obs.trace", "repro_torch.obs.metrics",
+    "repro_torch.cluster", "repro_torch.cluster.clock",
+    "repro_torch.cluster.faults", "repro_torch.cluster.mailbox",
+    "repro_torch.cluster.master", "repro_torch.cluster.worker",
+    "repro_torch.cluster.runtime", "repro_torch.kernels._build",
+    "repro_torch.kernels.dana_update", "repro_torch.kernels.dana_update.ref",
+    "repro_torch.kernels.dana_update.kernel",
+    "repro_torch.kernels.dana_update.ops", "repro_torch.launch",
+    "repro_torch.launch.cluster")
+
+
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
     return top.startswith("jax") or top == "repro"
@@ -34,6 +48,8 @@ def _forbidden(name: str) -> bool:
 def test_port_modules_import_no_jax_and_no_repro():
     mods = _port_modules()
     assert "repro_torch.kernels.flat_update.ops" in mods
+    for name in NEW_IN_SLICE_2:
+        assert name in mods, name
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
