@@ -8,23 +8,29 @@ The paths are the paper's asynchronous master: the discrete-event engine
 (``run_cluster``), running DANA-Zero through the hand-written CUDA
 kernels ``flat_update_batch`` (the batched master update), ``send_view``
 (the look-ahead view) and ``dana_master_update`` (the legacy
-per-message round).  Full width: the MLP classifier [2048, 4096, 4096,
-10] has 25,214,986 parameters, the size of the paper's ImageNet
-ResNet-50 master state, and 64 workers (the paper's largest cluster)
-hold a 6.46 GB momentum slab; batches of 256 per worker (16K in total).
-Depth is cut to 256 gradients (engine, deterministic cluster), 512 (free
-cluster) and 64 (legacy kernel path).
+per-message round), ga-asgd through ``gap_update`` (the gap-aware
+master update), and the other flat-eligible members through
+``flat_update_batch`` and ``send_view``.  Full width: the MLP
+classifier [2048, 4096, 4096, 10] has 25,214,986 parameters, the size
+of the paper's ImageNet ResNet-50 master state, and 64 workers (the
+paper's largest cluster) hold a 6.46 GB momentum slab (and ga-asgd,
+dana-dc and dc-asgd as large a snapshot slab); batches of 256 per worker
+(16K in total).  Depth is cut to 256 gradients (engine, deterministic
+cluster), 512 (free cluster), 64 (legacy kernel path), 128 (ga-asgd
+engine and deterministic cluster), 256 (ga-asgd free cluster) and 32
+(each other member).
 
 Phases (one JSON line each):
   device      the card, its power limit, the CUDA and PyTorch versions
   build       nvcc builds every kernel library from csrc/, one nvcc per
               source, all started together (seconds, ptxas report)
-  flat_update_batch / send_view / dana_master_update
+  flat_update_batch / send_view / dana_master_update / gap_update
               each kernel against its plain PyTorch version on the same
               inputs at its paths' shapes and the other modes, with the
               tolerance stated; CUDA-event times (median of 20) beside
               the least time the card could take (bound) and the plain
-              version's time
+              version's time; gap_update also twice on the same inputs,
+              bit for bit
   main_path   run_simulation with the kernels, then the same run on the
               tree path without kernels: identical event stream, final
               parameters within 1e-3 relative L2, every loss finite
@@ -41,6 +47,20 @@ Phases (one JSON line each):
               run_cluster, deterministic, use_kernel=True, flat=False:
               dana_master_update once per leaf per message; final
               parameters bit for bit the tree path's without kernels
+  main_path_ga
+              run_simulation with ga-asgd: gap_update once per message,
+              then the tree path: identical event stream, final
+              parameters within 1e-3 relative L2, every loss finite
+  cluster_ga_deterministic
+              run_cluster, deterministic, ga-asgd on the flat path: bit
+              for bit main_path_ga's kernel run (parameters, events,
+              telemetry with the snapshot staleness, eval losses)
+  cluster_ga_free
+              run_cluster, free, ga-asgd, coalescing up to 8: gap_update
+              once per message, the drained-k histogram
+  members     each other new member (sa-asgd, dc-asgd, lwp, dana-dc,
+              dana-hetero, nadam-asgd, dana-nadam) on the engine's
+              kernel path and on its tree path, as main_path
 Every path runs with the launch counts set to 0 just before it and read
 just after; a path that did not launch its kernels fails.  The last
 lines: the kernel table as JSON, the card's name and power limit, and
@@ -72,6 +92,19 @@ IDS8 = [3, 17, 3, 40, 63, 17, 0, 3]
 REPS = 20
 ELEM_TOL = dict(rtol=1e-6, atol=1e-6)
 WEIGHTED_TOL = dict(rtol=1e-5, atol=1e-5)
+# gap_update: the gap and step norms are sums of 25M f32 terms, which
+# the kernel and torch.sum add in different orders (relative error
+# about 1e-6 at most); the penalty carries that into every element, and
+# duplicate ids and the avg_step chain carry it across messages
+GAP_TOL = dict(rtol=1e-5, atol=1e-6)
+GA_GRADS = 128            # main_path_ga and cluster_ga_deterministic
+GA_FREE_GRADS = 256       # cluster_ga_free
+MEMBER_GRADS = 32         # each other new member, engine paths
+MEMBERS = ("sa-asgd", "dc-asgd", "lwp", "dana-dc", "dana-hetero",
+           "nadam-asgd", "dana-nadam")
+# Adam-sized rate for the Nadam pair (at the others' rate every element
+# moves by about lr per step, whatever its gradient)
+MEMBER_LR = {"nadam-asgd": 1e-3, "dana-nadam": 1e-3}
 # peak device-memory rate and f32 (non-tensor-core) rate by SKU: NVIDIA
 # data sheets; the SXM H100 is the default H100
 BANDWIDTH = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H100": 3.35e12,
@@ -80,6 +113,7 @@ F32_RATE = {"H100 PCIe": 51e12, "H100 NVL": 60e12, "H100": 67e12,
             "H200": 67e12}
 SRC = "src/repro_torch/kernels/flat_update/csrc/flat_update.cu"
 DANA_SRC = "src/repro_torch/kernels/dana_update/csrc/dana_update.cu"
+GAP_SRC = "src/repro_torch/kernels/flat_update/csrc/gap_update.cu"
 EXACT = dict(rtol=0.0, atol=0.0)
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 
@@ -395,8 +429,100 @@ def phase_dana_update(card):
     return recs
 
 
+# -- gap_update ----------------------------------------------------------
+def gap_bytes_ops(rows, ids, telemetry):
+    """What k gap-aware messages must move, each input read once and each
+    output written once: theta in/out, the u distinct v and sent rows
+    in/out, k gradients in, k hats (and k pre-thetas) out; and the
+    two-pass design's own traffic, which reads theta twice and the v and
+    sent rows once per message.  About 12 f32 operations per element per
+    message (3 in the gap norm, 9 in the update and its norm)."""
+    p, k, u = rows * 128, len(ids), len(set(ids))
+    least = 4 * p * (2 + 4 * u + 2 * k + k * telemetry)
+    design = 4 * p * k * (2 + 7 + telemetry)
+    return least, design, 12 * p * k
+
+
+def check_gap(card, label, rows, n, ids, seed):
+    """The kernel twice on the same inputs (bit for bit), then against
+    the plain version on the same inputs; telemetry on."""
+    from repro_torch.kernels.flat_update.kernel import flat_update_batch_gap
+    from repro_torch.kernels.flat_update.ref import (
+        flat_master_update_batch_ref)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    k = len(ids)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    state = {"theta": randn(rows, 128), "v": randn(n, rows, 128) * 0.1}
+    state["sent"] = state["theta"] + 0.01 * randn(n, rows, 128)
+    state["avg"] = torch.full((), 1e-3, device="cuda")
+    g = randn(k, rows, 128)
+    scal = (np.linspace(0.05, 0.04, k).astype(np.float32),
+            np.full(k, 0.9, np.float32), np.ones(k, np.float32),
+            np.linspace(1.0, 0.9, k).astype(np.float32))
+    kw = dict(gap_ema=0.99, n_elems=rows * 128, telemetry=True)
+    names = ("theta", "v", "sent", "avg")
+    runs = []
+    for _ in range(2):
+        st = [state[x].clone() for x in names]
+        out = list(flat_update_batch_gap(*st, g, ids, *scal, **kw))
+        out[4] = torch.stack(out[4])
+        runs.append(out)
+    torch.cuda.synchronize()
+    identical = all(torch.equal(a, b) for a, b in zip(*runs))
+    del runs[1]
+    outs = runs[0]
+    ref = flat_master_update_batch_ref(
+        state["theta"], state["v"], None, None, state["sent"],
+        state["avg"], g, ids, scal[0], None, scal[1], scal[2], scal[3],
+        nesterov=False, gap_aware=True, hat_mode="theta", **kw)
+    ref = (ref[0], ref[1], ref[4], ref[5], torch.stack(ref[6]), ref[7])
+    torch.cuda.synchronize()
+    errs = {}
+    for nm, a, b in zip(("theta", "v", "sent", "avg_step", "hats", "pres"),
+                        outs, ref):
+        errs[nm] = max_err(a, b, GAP_TOL, f"gap_update {label} {nm}")
+    del outs, ref
+    rec = {"phase": "gap_update", "mode": label, "R": rows, "N": n, "k": k,
+           "ids": list(ids), "max_abs_err": max(errs.values()),
+           "max_abs_err_by_output": errs, "tolerance": GAP_TOL,
+           "tolerance_reason": "norms of 25M f32 terms summed in another "
+                               "order, carried through the penalty",
+           "bit_identical_on_relaunch": identical}
+    st = [state[x] for x in names]
+    rec["ms"] = time_ms(lambda: flat_update_batch_gap(*st, g, ids, *scal,
+                                                      **kw))
+    rec["plain_ms"] = time_ms(lambda: flat_master_update_batch_ref(
+        st[0], st[1], None, None, st[2], st[3], g, ids, scal[0], None,
+        scal[1], scal[2], scal[3], nesterov=False, gap_aware=True,
+        hat_mode="theta", **kw))
+    least, design, nops = gap_bytes_ops(rows, ids, True)
+    rec["bytes"] = least
+    rec["bound_ms"], rec["bound_by"] = card.bound(least, nops)
+    rec["two_pass_bytes"] = design
+    rec["two_pass_bound_ms"] = card.bound(design, nops)[0]
+    rec["library_ms"] = None
+    emit(rec)
+    if not identical:
+        raise AssertionError(f"gap_update {label}: two launches on the "
+                             f"same inputs differ")
+    return rec
+
+
+def phase_gap_update(card):
+    recs = {"main": check_gap(card, "k=1 (main_path_ga)", R_FULL, WORKERS,
+                              [17], seed=31)}
+    torch.cuda.empty_cache()
+    recs["k8"] = check_gap(card, "k=8 duplicate ids (cluster_ga_free)",
+                           R_FULL, WORKERS, IDS8, seed=32)
+    torch.cuda.empty_cache()
+    return recs
+
+
 # -- the main path -------------------------------------------------------
-def configuration():
+def configuration(name="dana-zero", lr=LR):
     """The full-width configuration every path runs: (task, grad_fn,
     eval_fn, params0, algo) on the card."""
     from repro_torch.core.algorithms import make_algorithm
@@ -409,7 +535,7 @@ def configuration():
     init, grad_fn, make_eval = make_classifier_fns(DIMS)
     eval_fn = make_eval(task.eval_batch())
     params0 = init(np.random.default_rng(0), device="cuda")
-    algo = make_algorithm("dana-zero", HyperParams(lr=LR, momentum=0.9))
+    algo = make_algorithm(name, HyperParams(lr=lr, momentum=0.9))
     return task, grad_fn, eval_fn, params0, algo
 
 
@@ -436,68 +562,115 @@ def main_path(conf=None):
     return params0, run
 
 
-def phase_main_path(conf):
-    """The engine on the flat kernel path and on the tree path; returns
-    (record, the kernel path's history and final parameters)."""
+def engine_paths(conf, phase, grads, expect):
+    """The engine on the flat kernel path, then on the tree path without
+    kernels: the same event stream, final parameters within 1e-3
+    relative L2, every loss finite.  ``expect(counts)`` is true iff the
+    kernel run's launch counts show its kernels ran.  Returns (record,
+    the kernel path's history and final parameters)."""
     from repro_torch.core.flat import FlatSpec
     from repro_torch.core.types import tree_leaves
     from repro_torch.kernels import launches, reset_launches
 
     params0, run = main_path(conf)
     spec = FlatSpec.from_tree(params0)
-    n_params = spec.n_elems
     if spec.rows != R_FULL:
         raise AssertionError(f"layout has {spec.rows} rows, expected "
                              f"{R_FULL}")
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    hist_k, secs_k = run(True)
+    hist_k, secs_k = run(True, grads)
     counts = launches()
     peak_k = torch.cuda.max_memory_allocated()
-    if counts["send_view"] < WORKERS or counts["flat_update_batch"] != GRADS:
-        raise AssertionError(f"main path did not run through the kernels: "
-                             f"{counts}")
     final_k = [l.clone() for l in tree_leaves(hist_k.final_params)]
     hist_k.final_params = None
     torch.cuda.empty_cache()
     reset_launches()
-    hist_t, secs_t = run(False)
+    hist_t, secs_t = run(False, grads)
     tree_counts = launches()
-    for key in ("time", "worker", "lag", "step"):
-        if getattr(hist_k, key) != getattr(hist_t, key):
-            raise AssertionError(f"event stream differs in {key!r}")
+    events_equal = all(getattr(hist_k, key) == getattr(hist_t, key)
+                       for key in ("time", "worker", "lag", "step"))
     final_t = tree_leaves(hist_t.final_params)
     num = sum(float(torch.sum((a - b) ** 2)) for a, b in zip(final_k,
                                                              final_t))
     den = sum(float(torch.sum(b ** 2)) for b in final_t)
     rel = (num / den) ** 0.5
+    eval_loss_t = hist_t.eval_loss
+    del hist_t, final_t
+    torch.cuda.empty_cache()
     finite = (all(np.isfinite(hist_k.eval_loss))
-              and all(np.isfinite(hist_t.eval_loss))
               and all(bool(torch.isfinite(l).all()) for l in final_k))
     shapes = [tuple(l.shape) for l in final_k] == [
         tuple(l.shape) for l in tree_leaves(params0)]
-    rec = {"phase": "main_path", "algorithm": "dana-zero", "lr": LR,
-           "momentum": 0.9, "dims": DIMS, "params": n_params,
-           "rows": spec.rows, "workers": WORKERS, "grads": GRADS,
-           "batch_per_worker": BATCH,
+    algo = conf[4]
+    rec = {"phase": phase, "algorithm": algo.name,
+           "lr": float(algo.hp.lr), "momentum": 0.9, "dims": DIMS,
+           "params": spec.n_elems, "rows": spec.rows, "workers": WORKERS,
+           "grads": grads, "batch_per_worker": BATCH,
            "eval_loss_kernel": hist_k.eval_loss,
            "eval_acc_kernel": hist_k.eval_metric,
-           "eval_loss_tree": hist_t.eval_loss,
+           "eval_loss_tree": eval_loss_t,
            "seconds_kernel_path": secs_k, "seconds_tree_path": secs_t,
-           "messages_per_s_kernel_path": GRADS / secs_k,
-           "messages_per_s_tree_path": GRADS / secs_t,
+           "messages_per_s_kernel_path": grads / secs_k,
+           "messages_per_s_tree_path": grads / secs_t,
            "launches": counts, "launches_tree_path": tree_counts,
            "peak_mem_gb_kernel_path": peak_k / 1e9,
+           "events_equal_to_tree_path": events_equal,
            "final_params_rel_l2_kernel_vs_tree": rel,
            "mean_lag": hist_k.mean_lag(), "mean_gap": hist_k.mean_gap()}
     emit(rec)
+    if not expect(counts) or any(tree_counts.values()):
+        raise AssertionError(f"{phase} did not run through its kernels: "
+                             f"{counts}, tree path {tree_counts}")
+    if not events_equal:
+        raise AssertionError(f"{phase}: event streams differ")
     if not finite or not shapes:
-        raise AssertionError("main path produced non-finite values or "
-                             "wrong shapes")
+        raise AssertionError(f"{phase} produced non-finite values or "
+                             f"wrong shapes")
     if rel > 1e-3:
-        raise AssertionError(f"kernel path and tree path disagree: "
-                             f"relative L2 {rel}")
+        raise AssertionError(f"{phase}: kernel path and tree path "
+                             f"disagree: relative L2 {rel}")
     return rec, hist_k, final_k
+
+
+def phase_main_path(conf):
+    """DANA-Zero, GRADS messages: one flat_update_batch per message and
+    one send_view per initial view."""
+    return engine_paths(
+        conf, "main_path", GRADS,
+        lambda c: (c["flat_update_batch"] == GRADS
+                   and c["send_view"] >= WORKERS))
+
+
+def phase_main_path_ga():
+    """ga-asgd, GA_GRADS messages: one gap_update per message; the views
+    are copies of theta (no send_view), and nothing else launches."""
+    conf = configuration("ga-asgd")
+    rec, hist, final = engine_paths(
+        conf, "main_path_ga", GA_GRADS,
+        lambda c: (c["gap_update"] == GA_GRADS
+                   and c["flat_update_batch"] == 0
+                   and c["send_view"] == 0))
+    return conf, rec, hist, final
+
+
+def phase_members():
+    """Every other new member, MEMBER_GRADS messages on each engine path:
+    one flat_update_batch per message, and one send_view per initial
+    view for the members whose send is a look-ahead."""
+    from repro_torch.kernels.flat_update import SEND_KERNEL
+    recs = {}
+    for name in MEMBERS:
+        sends = WORKERS if name in SEND_KERNEL else 0
+        recs[name], _, _ = engine_paths(
+            configuration(name, MEMBER_LR.get(name, LR)),
+            f"member {name}", MEMBER_GRADS,
+            lambda c, s=sends: (c["flat_update_batch"] == MEMBER_GRADS
+                                and c["send_view"] == s
+                                and c["gap_update"] == 0))
+        torch.cuda.empty_cache()
+    return recs
 
 
 # -- the threaded cluster --------------------------------------------------
@@ -544,29 +717,38 @@ def cluster_record(phase, hist, stats, counts, secs, peak):
             "mean_gap": hist.mean_gap()}
 
 
-def phase_cluster_deterministic(conf, hist_e, final_e):
+def phase_cluster_deterministic(conf, hist_e, final_e,
+                                phase="cluster_deterministic", grads=None,
+                                expect=None):
     """The deterministic cluster on the flat kernel path: bit for bit
-    the engine's kernel-path run of ``phase_main_path``."""
+    the engine's kernel-path run (``hist_e``, ``final_e``): final
+    parameters, events, telemetry (the snapshot staleness included) and
+    eval losses."""
     from repro_torch.core.types import tree_leaves
+    grads = GRADS if grads is None else grads
     hist, stats, counts, secs, peak = run_cluster_once(
-        conf, mode="deterministic", total_grads=GRADS, use_kernel=True)
-    rec = cluster_record("cluster_deterministic", hist, stats, counts,
-                         secs, peak)
+        conf, mode="deterministic", total_grads=grads, use_kernel=True)
+    rec = cluster_record(phase, hist, stats, counts, secs, peak)
     same = {key: getattr(hist, key) == getattr(hist_e, key)
             for key in ("time", "worker", "lag", "step", "gap",
                         "grad_norm", "eval_loss")}
+    same["staleness"] = bool(np.array_equal(hist.staleness,
+                                            hist_e.staleness,
+                                            equal_nan=True))
     final = tree_leaves(hist.final_params)
     rec["final_params_bit_equal_to_engine"] = all(
         torch.equal(a, b) for a, b in zip(final, final_e))
     rec["equal_to_engine"] = same
     emit(rec)
-    if (counts["flat_update_batch"] != GRADS
-            or counts["send_view"] < WORKERS):
-        raise AssertionError(f"cluster_deterministic did not run through "
-                             f"the kernels: {counts}")
+    if expect is None:
+        expect = (lambda c: c["flat_update_batch"] == GRADS
+                  and c["send_view"] >= WORKERS)
+    if not expect(counts):
+        raise AssertionError(f"{phase} did not run through the kernels: "
+                             f"{counts}")
     if not (rec["final_params_bit_equal_to_engine"] and all(same.values())):
-        raise AssertionError("cluster_deterministic differs from the "
-                             "engine's kernel path")
+        raise AssertionError(f"{phase} differs from the engine's kernel "
+                             f"path")
     return rec
 
 
@@ -584,6 +766,28 @@ def phase_cluster_free(conf):
                              f"{len(hist.gap)} telemetry rows, {counts}")
     if max(stats["coalesce_counts"]) < 2:
         raise AssertionError("cluster_free drained no batch with k > 1")
+    return rec
+
+
+def phase_cluster_ga_free(conf):
+    """ga-asgd in free mode, coalescing up to 8 messages, telemetry on:
+    one gap_update per message, whatever the drained k."""
+    hist, stats, counts, secs, peak = run_cluster_once(
+        conf, mode="free", total_grads=GA_FREE_GRADS, coalesce=8,
+        record_telemetry=True)
+    rec = cluster_record("cluster_ga_free", hist, stats, counts, secs, peak)
+    rec["staleness_equals_lag"] = hist.staleness == [float(l)
+                                                     for l in hist.lag]
+    emit(rec)
+    if (stats["applied"] != GA_FREE_GRADS
+            or len(hist.gap) != GA_FREE_GRADS
+            or counts["gap_update"] != GA_FREE_GRADS
+            or counts["flat_update_batch"]):
+        raise AssertionError(f"cluster_ga_free: {stats['applied']} applied, "
+                             f"{len(hist.gap)} telemetry rows, {counts}")
+    if not rec["staleness_equals_lag"]:
+        raise AssertionError("cluster_ga_free: snapshot staleness is not "
+                             "the lag")
     return rec
 
 
@@ -646,6 +850,7 @@ def main():
     fu = phase_flat_update(card)
     sv = phase_send_view(card)
     du = phase_dana_update(card)
+    gu = phase_gap_update(card)
     conf = configuration()
     main_rec, hist_e, final_e = phase_main_path(conf)
     paths = {"main_path": main_rec,
@@ -654,6 +859,17 @@ def main():
     del hist_e, final_e
     paths["cluster_free"] = phase_cluster_free(conf)
     paths["cluster_legacy"] = phase_cluster_legacy(conf)
+    del conf
+    torch.cuda.empty_cache()
+    conf_ga, paths["main_path_ga"], hist_e, final_e = phase_main_path_ga()
+    paths["cluster_ga_deterministic"] = phase_cluster_deterministic(
+        conf_ga, hist_e, final_e, phase="cluster_ga_deterministic",
+        grads=GA_GRADS, expect=lambda c: c["gap_update"] == GA_GRADS)
+    del hist_e, final_e
+    paths["cluster_ga_free"] = phase_cluster_ga_free(conf_ga)
+    del conf_ga
+    torch.cuda.empty_cache()
+    paths.update({f"member {k}": r for k, r in phase_members().items()})
     kernels = []
     for name, rec, path, src, replaces in (
             ("flat_update_batch", fu["main"], "main_path", SRC,
@@ -661,7 +877,9 @@ def main():
             ("send_view", sv["main"], "main_path", SRC,
              "src/repro/kernels/flat_update/send.py:86"),
             ("dana_master_update", du["main"], "cluster_legacy", DANA_SRC,
-             "src/repro/kernels/dana_update/kernel.py:42")):
+             "src/repro/kernels/dana_update/kernel.py:42"),
+            ("gap_update", gu["main"], "main_path_ga", GAP_SRC,
+             "src/repro/kernels/flat_update/kernel.py:743")):
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
@@ -670,11 +888,13 @@ def main():
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"],
             "library_ms": rec.get("library_ms"),
-            "launches_by_path": {p: r["launches"][name]
+            "launches_by_path": {p: r["launches"].get(name, 0)
                                  for p, r in paths.items()}})
     kernels[0]["also_replaces"] = "src/repro/kernels/flat_update/kernel.py:497"
     for key in ("ms", "bound_ms", "plain_ms", "max_abs_err"):
         kernels[0][f"{key}_k8_cluster_wire"] = fu["cluster"][key]
+        kernels[3][f"{key}_k8"] = gu["k8"][key]
+    kernels[3]["also_replaces"] = "src/repro/kernels/flat_update/kernel.py:828"
     emit({"kernels": kernels})
     print(card.smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": card.name,

@@ -9,11 +9,12 @@ would have gotten from per-message processing).
 
 Three master paths, as in the JAX package:
 
-* **flat** (the default whenever ``use_kernel``): the ported flat
-  family (asgd, nag-asgd, multi-asgd, dana-zero, dana-slim) runs on flat
-  (R, 128) state packed ONCE at init, and all k drained messages go
-  through ONE launch of the CUDA kernel ``flat_update_batch`` (the plain
-  version for CPU tensors).  The wire is flat too: workers receive
+* **flat** (the default whenever ``use_kernel``): every flat-eligible
+  member runs on flat (R, 128) state packed ONCE at init, and all k
+  drained messages go through ONE batched update: one launch of the
+  CUDA kernel ``flat_update_batch``, or, for ga-asgd, the gap-aware
+  kernel ``gap_update`` message by message (the plain version for CPU
+  tensors).  The wire is flat too: workers receive
   (R, 128) views and push (R, 128) gradients (the runtime wraps their
   ``grad_fn`` with ``FlatSpec.unpack`` / ``FlatSpec.pack``), so the
   master thread never touches a tree on the hot path.  The kernel takes
@@ -39,7 +40,11 @@ device and are spooled with their host metadata; the spool flushes to
 its cap and at the end of the run, in the order the messages were
 applied.  Gap and norm are the engine's own reductions (``tree_gap`` /
 ``tree_l2`` over the leaves), so the deterministic cluster's telemetry
-equals the engine's bit for bit on both paths.
+equals the engine's bit for bit on both paths.  The sent-snapshot
+members (dc-asgd, dana-dc, ga-asgd) also record each message's snapshot
+staleness: on the flat path from the host SENT_STEP lane
+(``FlatAlgorithm.batch_staleness``), on the tree path as the lag it
+equals; the other members record NaN, as the engine does.
 
 When the fused batch would cross an eval boundary, the serve loop
 splits it there, so evals always observe the state at exactly a
@@ -64,7 +69,9 @@ from ..core.types import (tree_gap, tree_index, tree_l2, tree_leaves,
                           tree_scale, tree_set_index)
 from ..kernels.dana_update import dana_master_update
 from ..kernels.dana_update.kernel import LIB as DANA_LIB
-from ..kernels.flat_update import FlatAlgorithm, family_spec_for
+from ..kernels.flat_update import (FlatAlgorithm, family_spec_for,
+                                   kernel_eligible)
+from ..kernels.flat_update._build import GAP_LIB
 from ..kernels.flat_update._build import LIB as FLAT_LIB
 from ..obs import trace
 from .faults import FaultInjector
@@ -166,7 +173,8 @@ class Master:
                  record_telemetry: bool = True,
                  eval_fn: Callable | None = None, eval_every: int = 100,
                  injector: FaultInjector | None = None,
-                 time_fn: Callable[[GradMsg], float] | None = None):
+                 time_fn: Callable[[GradMsg], float] | None = None,
+                 pipeline_depth: int = 0):
         self.algo = algo
         self._tree_state: dict | None = state
         self._flat_algo: FlatAlgorithm | None = None
@@ -176,7 +184,7 @@ class Master:
             if flat is None:
                 flat = True
             if flat:
-                if family_spec_for(algo) is None:
+                if not kernel_eligible(algo):
                     raise ValueError(f"use_kernel=True but {algo.name!r} "
                                      f"has no flat path in the port")
                 self._flat_algo = FlatAlgorithm(algo)
@@ -211,10 +219,17 @@ class Master:
         # bundle (attached by run_cluster when a registry is passed)
         self.obs_cat = "master"
         self.metrics = None
+        # sent-snapshot members (dc-asgd, dana-dc, ga-asgd) refresh a
+        # worker's snapshot on every send and reply, so a message's
+        # snapshot staleness is its lag; the others record NaN (as the
+        # engine does)
+        fam = family_spec_for(algo)
+        self._sent_family = fam is not None and fam.sent_key is not None
+        # worker pull-ahead depth (staleness accounting only; the
+        # workers do the pipelining, see _flush_telemetry)
+        self._pipeline_depth = max(0, int(pipeline_depth))
         # deferred telemetry: per-batch device tensors + host metadata,
-        # flushed to History at eval watermarks / cap / end of run.  No
-        # ported member keeps a sent snapshot, so every row's
-        # sent-snapshot staleness is NaN.
+        # flushed to History at eval watermarks / cap / end of run
         self._tele_spool: list = []
         self._tele_cap = 64
         # slab traffic model for the serve-loop counters
@@ -269,6 +284,8 @@ class Master:
             return
         if self.state_is_flat:
             FLAT_LIB.load()
+            if self._flat_algo.fam.gap_aware:
+                GAP_LIB.load()
         elif self.legacy_kernel:
             DANA_LIB.load()
 
@@ -291,6 +308,8 @@ class Master:
         return state, theta_hat
 
     def _apply_tree(self, work: list[GradMsg], telemetry: bool):
+        """Message by message on trees; the staleness column is the lag
+        (``_flush_telemetry``), so it returns None for it."""
         views, gaps, gnorms = [], [], []
         state = self._tree_state
         for m in work:
@@ -305,13 +324,18 @@ class Master:
                                                      m.grad, m.t_send)
             views.append(view)
         self._tree_state = state
-        return views, gaps, gnorms
+        return views, gaps, gnorms, None
 
     def _apply_flat(self, work: list[GradMsg], telemetry: bool):
         fa = self._flat_algo
+        ids = [m.worker_id for m in work]
+        # per-message snapshot staleness from the host lane, read BEFORE
+        # apply_batch restamps it (None unless a sent-snapshot member)
+        stals = (fa.batch_staleness(self._flat_state, ids, len(work))
+                 if telemetry and self._sent_family else None)
         self._flat_state, hats, pres = fa.apply_batch(
-            self._flat_state, [m.worker_id for m in work],
-            [m.grad for m in work], telemetry=telemetry)
+            self._flat_state, ids, [m.grad for m in work],
+            [m.t_send for m in work], telemetry=telemetry)
         gaps, gnorms = [], []
         if telemetry:
             # the engine's reductions over the leaves (views of the flat
@@ -321,16 +345,16 @@ class Master:
                 gaps.append(tree_gap(spec.unpack(pres[j]),
                                      spec.unpack(m.view)))
                 gnorms.append(tree_l2(spec.unpack(m.grad)))
-        return hats, gaps, gnorms
+        return hats, gaps, gnorms, stals
 
     def _apply(self, work: list[GradMsg]):
         k = len(work)
         telemetry = self.record_telemetry
         t0 = self._step
         if self.state_is_flat:
-            views, gaps, gnorms = self._apply_flat(work, telemetry)
+            views, gaps, gnorms, stals = self._apply_flat(work, telemetry)
         else:
-            views, gaps, gnorms = self._apply_tree(work, telemetry)
+            views, gaps, gnorms, stals = self._apply_tree(work, telemetry)
         self._step = t0 + k
         if telemetry:
             # sync-free serve loop: gaps/gnorms stay on the device and
@@ -338,7 +362,7 @@ class Master:
             # record() calls in the same order
             metas = [(self._time_fn(m), m.worker_id, m.view_step)
                      for m in work]
-            self._tele_spool.append((t0, metas, gaps, gnorms))
+            self._tele_spool.append((t0, metas, gaps, gnorms, stals))
         evals = []
         for j, m in enumerate(work):
             self.applied += 1
@@ -361,14 +385,25 @@ class Master:
         point where the master thread waits on the device for telemetry
         (one ``.cpu()`` per spooled batch)."""
         spool, self._tele_spool = self._tele_spool, []
-        for t0, metas, gaps, gnorms in spool:
+        for t0, metas, gaps, gnorms, stals in spool:
             gaps = torch.stack(gaps).cpu().numpy()
             gnorms = torch.stack(gnorms).cpu().numpy()
             for j, (t_m, wid, vstep) in enumerate(metas):
+                lag = t0 + j - vstep
+                if not self._sent_family:
+                    stal = float("nan")
+                elif stals is None or self._pipeline_depth:
+                    # the tree path; or pull-ahead, where the gradient was
+                    # computed on an OLDER reply than the one that last
+                    # restamped the lane, so the lane undercounts by the
+                    # depth and the lag is the snapshot's true age
+                    stal = float(lag)
+                else:
+                    stal = float(stals[j])
                 self.history.record(
-                    time=t_m, step=t0 + j + 1, worker=wid,
-                    lag=t0 + j - vstep, gap=float(gaps[j]),
-                    grad_norm=float(gnorms[j]))
+                    time=t_m, step=t0 + j + 1, worker=wid, lag=lag,
+                    gap=float(gaps[j]), grad_norm=float(gnorms[j]),
+                    staleness=stal)
 
     def _eval(self, t, step):
         if self._eval_fn is None:

@@ -27,7 +27,7 @@ from ..core.algorithms import Algorithm
 from ..core.gamma import GammaModel
 from ..core.metrics import History
 from ..core.types import Pytree, tree_map
-from ..kernels.flat_update import family_spec_for
+from ..kernels.flat_update import kernel_eligible
 from ..obs import trace
 from ..obs.metrics import (MetricsRegistry, SnapshotPublisher,
                            history_observer, serve_instruments)
@@ -158,10 +158,10 @@ def run_cluster(
     use_kernel = cfg.use_kernel
     if use_kernel is None:
         # auto: the flat path in live modes (bit-equal to the tree path
-        # for the ported elementwise family); deterministic runs stay on
-        # the tree path, as in the JAX package
-        use_kernel = (not deterministic
-                      and family_spec_for(algo) is not None)
+        # for the elementwise members; dana-hetero and ga-asgd agree to
+        # reduction-order tolerance); deterministic runs stay on the
+        # tree path, as in the JAX package
+        use_kernel = not deterministic and kernel_eligible(algo)
 
     injector = (FaultInjector(cfg.faults, n, cfg.exec_model.batch_size)
                 if cfg.faults is not None else None)
@@ -192,7 +192,8 @@ def run_cluster(
         total_grads=cfg.total_grads, coalesce=coalesce,
         use_kernel=use_kernel, flat=cfg.flat,
         record_telemetry=cfg.record_telemetry, eval_fn=eval_fn,
-        eval_every=cfg.eval_every, injector=injector, time_fn=time_fn)
+        eval_every=cfg.eval_every, injector=injector, time_fn=time_fn,
+        pipeline_depth=cfg.pipeline_depth)
     del state, params
 
     # -- observability wiring (None-guarded: zero hot-path cost when off)

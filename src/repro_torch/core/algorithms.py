@@ -12,20 +12,34 @@ Every algorithm is an (init, send, receive) triple:
 The discrete-event engine (``core/engine.py``) decides *when* send and
 receive happen.
 
-Ported so far (paper algorithm numbers in brackets):
+Ported (paper algorithm numbers in brackets):
   asgd          plain ASGD, no momentum                      [Alg. 1+2]
+  sa-asgd       staleness-aware ASGD, lr / tau per message   [Zhang et al.]
   nag-asgd      single shared momentum at the master         [Alg. 8, fn. 1]
   multi-asgd    per-worker momentum at the master            [Alg. 9]
+  dc-asgd       delay compensation (Zheng et al. 2017)       [Alg. 10]
+  lwp           linear weight prediction (Kosson et al.)     [Alg. 3]
   dana-zero     per-worker momentum + global look-ahead      [Alg. 4]
   dana-slim     Bengio-style, zero master overhead           [Alg. 6]
-The rest of the JAX registry is listed in ROADMAP.md.
+  dana-dc       DANA-Zero + delay compensation               [Alg. 7]
+  dana-hetero   rate-weighted look-ahead                     [Sec. 3]
+  nadam-asgd    one shared Nadam (m, u) pair at the master   [Sec. 7]
+  dana-nadam    per-worker first moments + Nadam look-ahead  [Sec. 7]
+  ga-asgd       gap-aware penalty (Barkai et al. 2020)       [App. C]
+The synchronous baseline (ssgd), easgd, dana-easgd and yellowfin are not
+ported yet (ROADMAP.md, item A1).
 
 State layout: tensors for the parameter-shaped entries; the step ``t`` is
-a Python int and ``lr_prev`` / ``vscale`` are host ``np.float32``
-scalars, computed in the same float32 operation order as the JAX
-package, so the two packages' states agree bit for bit.  ``theta0`` is
-replaced by a new tree on every receive (views handed out earlier stay
-valid); per-worker stacks are updated in place, one row per message.
+a Python int and ``lr_prev`` / ``vscale`` / ``tau`` are host
+``np.float32`` scalars, computed in the same float32 operation order as
+the JAX package, so the two packages' states agree bit for bit.  The
+per-worker scalars (sa-asgd's ``sent_t``, dana-hetero's ``last_t`` and
+``interval``) are host float32 numpy vectors, replaced on every update.
+ga-asgd's ``avg_step`` is a 0-d tensor on the state's device: it depends
+on norms of device tensors, and keeping it there spares the loop a sync.
+``theta0`` is replaced by a new tree on every receive (views handed out
+earlier stay valid); per-worker stacks (``v``, ``m``, ``sent``) are
+updated in place, one row per message.
 
 Note on NAG vs heavy-ball at the master: Appendix Algs. 8/9 print the
 heavy-ball update ``theta <- theta - eta*v`` while footnote 1 and the text
@@ -41,8 +55,9 @@ import numpy as np
 import torch
 
 from .schedules import Schedule, constant, momentum_correction
-from .types import (HyperParams, Pytree, tree_add, tree_axpy, tree_index,
-                    tree_leaves, tree_map, tree_scale, tree_set_index,
+from .types import (HyperParams, Pytree, sqrt_rn, tree_add, tree_axpy,
+                    tree_gap, tree_index, tree_l2, tree_leaves, tree_map,
+                    tree_mul, tree_scale, tree_set_index, tree_size,
                     tree_sub, tree_zeros_like)
 
 _F32 = np.float32
@@ -70,6 +85,12 @@ def _stacked_zeros(params: Pytree, n: int) -> Pytree:
     return tree_map(
         lambda l: torch.zeros((n,) + tuple(l.shape), dtype=l.dtype,
                               device=l.device), params)
+
+
+def _stacked_broadcast(params: Pytree, n: int) -> Pytree:
+    return tree_map(
+        lambda l: l.unsqueeze(0).expand((n,) + tuple(l.shape)).clone(),
+        params)
 
 
 class Algorithm:
@@ -127,9 +148,9 @@ class Algorithm:
             vscale=state["vscale"] if self.send_vscale else None)
 
     def _send_rate_weights(self, state: dict, i):
-        """w_j = r_j / r_i from the per-worker interval EMA."""
-        rates = 1.0 / torch.clamp(state["interval"], min=1e-6)   # [N]
-        return rates / torch.clamp(rates[i], min=1e-6)
+        """w_j = r_j / r_i from the per-worker interval EMA (host f32)."""
+        rates = _F32(1.0) / np.maximum(state["interval"], _F32(1e-6))
+        return rates / np.maximum(rates[i], _F32(1e-6))
 
     def send(self, state: dict, i) -> tuple[Pytree, dict]:
         if self.send_source is None:
@@ -137,10 +158,11 @@ class Algorithm:
         else:
             src = state[self.send_source]
             if self.send_stacked:
+                first = tree_leaves(src)[0]
                 if self.send_weights == "rate":
-                    w = self._send_rate_weights(state, i)
+                    w = torch.from_numpy(
+                        self._send_rate_weights(state, i)).to(first.device)
                 else:
-                    first = tree_leaves(src)[0]
                     w = torch.ones((first.shape[0],), dtype=torch.float32,
                                    device=first.device)
                 src = tree_map(lambda s: torch.tensordot(w, s, dims=1),
@@ -148,7 +170,7 @@ class Algorithm:
             c = self._send_scale(state)
             if self.send_adaptive:
                 view = tree_map(
-                    lambda t, s, u: t - (c * s) / (torch.sqrt(u) + self.EPS),
+                    lambda t, s, u: t - (c * s) / (sqrt_rn(u) + self.EPS),
                     state["theta0"], src, state["u"])
             else:
                 view = tree_axpy(-c, src, state["theta0"])
@@ -207,6 +229,43 @@ class ASGD(Algorithm):
 
     def receive(self, state, i, grad, now=0.0):
         lr, _ = self._lr_and_correction(state)
+        state = dict(state)
+        state["theta0"] = tree_axpy(-lr, grad, state["theta0"])
+        state["t"] = state["t"] + 1
+        state["lr_prev"] = lr
+        return state
+
+
+class SAASGD(ASGD):
+    """Staleness-aware ASGD (Zhang et al.): lr / tau per message.
+
+    The master stamps the step each worker's view was sent at
+    (``sent_t``, one host f32 scalar per worker) and divides the learning
+    rate for worker i's gradient by its staleness tau = t - sent_t[i]
+    (floored at 1, so synchronous pushes run at full lr).  The flat path
+    keeps ``sent_t`` in the SENT_STEP scalar lane and folds the division
+    into its per-message rates.
+    """
+
+    name = "sa-asgd"
+
+    def init(self, params, num_workers):
+        s = self._base_state(params, num_workers)
+        s["sent_t"] = np.zeros((num_workers,), _F32)
+        return s
+
+    def send(self, state, i):
+        view, state = super().send(state, i)
+        state = dict(state)
+        sent_t = state["sent_t"].copy()
+        sent_t[i] = _F32(state["t"])
+        state["sent_t"] = sent_t
+        return view, state
+
+    def receive(self, state, i, grad, now=0.0):
+        lr, _ = self._lr_and_correction(state)
+        tau = np.maximum(_F32(state["t"]) - state["sent_t"][i], _F32(1.0))
+        lr = lr / tau
         state = dict(state)
         state["theta0"] = tree_axpy(-lr, grad, state["theta0"])
         state["t"] = state["t"] + 1
@@ -276,6 +335,79 @@ class MultiASGD(Algorithm):
         s["v"] = _stacked_zeros(s["theta0"], num_workers)
         s["vscale"] = self._vscale_init()
         return s
+
+
+class DCASGD(Algorithm):
+    """Delay-compensated ASGD (Zheng et al. 2017), Algorithm 10.
+
+    ghat = g + lambda * g (.) g (.) (theta0 - theta_sent_i)
+    """
+
+    name = "dc-asgd"
+    snapshot_key = "sent"
+
+    def init(self, params, num_workers):
+        s = self._base_state(params, num_workers)
+        s["v"] = _stacked_zeros(s["theta0"], num_workers)
+        s["vscale"] = self._vscale_init()
+        s["sent"] = _stacked_broadcast(s["theta0"], num_workers)
+        return s
+
+    def receive(self, state, i, grad, now=0.0):
+        g = _F32(self.hp.momentum)
+        lr, vscale = self._lr_and_vscale(state)
+        state = dict(state)
+        ghat = _delay_compensated(state, i, grad, _F32(self.hp.dc_lambda))
+        vi = tree_axpy(g, tree_index(state["v"], i),
+                       tree_scale(_F32(1.0) / vscale, ghat))
+        state["theta0"] = tree_axpy(-lr * vscale, vi, state["theta0"])
+        state["v"] = tree_set_index(state["v"], i, vi)
+        state["vscale"] = vscale
+        state["t"] = state["t"] + 1
+        state["lr_prev"] = lr
+        return state
+
+
+def _delay_compensated(state: dict, i, grad, lam):
+    """grad + lam * ((grad * grad) * (theta0 - sent_i))."""
+    delta = tree_sub(state["theta0"], tree_index(state["sent"], i))
+    return tree_add(grad, tree_scale(lam, tree_mul(tree_mul(grad, grad),
+                                                   delta)))
+
+
+class LWP(Algorithm):
+    """Linear Weight Prediction (Kosson et al. 2020), Algorithm 3.
+
+    Master keeps a single momentum vector and sends the tau-step linear
+    extrapolation theta0 - tau*eta*v.
+    """
+
+    name = "lwp"
+    send_source = "v"
+    send_tau = True
+    send_vscale = True
+
+    def init(self, params, num_workers):
+        s = self._base_state(params, num_workers)
+        s["v"] = tree_zeros_like(s["theta0"])
+        s["vscale"] = self._vscale_init()
+        tau = (self.hp.lwp_tau if self.hp.lwp_tau is not None
+               else float(max(num_workers - 1, 1)))
+        s["tau"] = _F32(tau)
+        return s
+
+    def receive(self, state, i, grad, now=0.0):
+        g = _F32(self.hp.momentum)
+        lr, vscale = self._lr_and_vscale(state)
+        state = dict(state)
+        v = tree_axpy(g, state["v"],                    # stored scale
+                      tree_scale(_F32(1.0) / vscale, grad))
+        state["theta0"] = tree_axpy(-lr * vscale, v, state["theta0"])
+        state["v"] = v
+        state["vscale"] = vscale
+        state["t"] = state["t"] + 1
+        state["lr_prev"] = lr
+        return state
 
 
 class DanaZero(Algorithm):
@@ -349,15 +481,211 @@ class DanaSlim(Algorithm):
         return state
 
 
+class DanaDC(DanaZero):
+    """DANA-DC (Algorithm 7): DANA-Zero + delay compensation."""
+
+    name = "dana-dc"
+    snapshot_key = "sent"
+    snapshot_view = True      # the snapshot is the view the worker GOT
+
+    def init(self, params, num_workers):
+        s = super().init(params, num_workers)
+        s["sent"] = _stacked_broadcast(s["theta0"], num_workers)
+        return s
+
+    def receive(self, state, i, grad, now=0.0):
+        ghat = _delay_compensated(state, i, grad, _F32(self.hp.dc_lambda))
+        return super().receive(state, i, ghat, now)
+
+
+class DanaHetero(DanaZero):
+    """Rate-weighted DANA look-ahead (the extension the paper suggests:
+    "monitoring the rate of each worker's updates and weighting them
+    accordingly").
+
+    The master tracks an EMA of each worker's push interval.  Worker i's
+    look-ahead weights each v^j by the expected number of worker-j
+    updates during one of worker i's intervals, r_j / r_i:
+
+        theta_hat_i = theta0 - eta*gamma * sum_j (r_j / r_i) v^j
+
+    ``interval`` and ``last_t`` are host f32 vectors advanced from the
+    message timestamps ``now``.
+    """
+
+    name = "dana-hetero"
+    RATE_EMA = 0.8
+    send_source = "v"
+    send_stacked = True
+    send_weights = "rate"
+    send_gamma = True
+    send_vscale = True
+
+    def init(self, params, num_workers):
+        s = super().init(params, num_workers)
+        s["last_t"] = np.zeros((num_workers,), _F32)
+        s["interval"] = np.ones((num_workers,), _F32)
+        return s
+
+    def receive(self, state, i, grad, now=0.0):
+        state = dict(state)
+        now = _F32(now)
+        interval, last_t = state["interval"].copy(), state["last_t"].copy()
+        dt = np.maximum(now - last_t[i], _F32(1e-6))
+        interval[i] = (_F32(self.RATE_EMA) * interval[i]
+                       + _F32(1 - self.RATE_EMA) * dt)
+        last_t[i] = now
+        state["interval"], state["last_t"] = interval, last_t
+        return super().receive(state, i, grad, now)
+
+
+class NadamASGD(Algorithm):
+    """Naive async Nadam: ONE shared (m, u) moment pair at the master —
+    the adaptive analogue of NAG-ASGD (the baseline of DANA-Nadam).
+
+    Simplified Nadam (no bias correction):
+        m <- b1*m + (1-b1)*g ;  u <- b2*u + (1-b2)*g^2
+        theta <- theta - lr * (b1*m + (1-b1)*g) / (sqrt(u) + eps)
+    """
+
+    name = "nadam-asgd"
+    B2 = 0.999
+    EPS = 1e-8
+
+    def init(self, params, num_workers):
+        s = self._base_state(params, num_workers)
+        s["m"] = tree_zeros_like(s["theta0"])
+        s["u"] = tree_zeros_like(s["theta0"])
+        return s
+
+    def _moments(self):
+        """b1, 1-b1, b2, 1-b2 as the JAX package's f32 operands (the
+        differences are taken in double, then rounded)."""
+        b1, b2 = self.hp.momentum, self.B2
+        return _F32(b1), _F32(1 - b1), _F32(b2), _F32(1 - b2)
+
+    def _apply(self, state, m_new, grad, u_new, lr):
+        b1, c1, _, _ = self._moments()
+        upd = tree_map(
+            lambda m, g, u: (b1 * m + c1 * g) / (sqrt_rn(u) + self.EPS),
+            m_new, grad, u_new)
+        state["theta0"] = tree_axpy(-lr, upd, state["theta0"])
+        return state
+
+    def _second_moment(self, state, grad):
+        _, _, b2, c2 = self._moments()
+        return tree_map(lambda uu, g: b2 * uu + c2 * g * g, state["u"],
+                        grad)
+
+    def receive(self, state, i, grad, now=0.0):
+        b1, c1, _, _ = self._moments()
+        lr = self.schedule(state["t"])
+        state = dict(state)
+        m = tree_map(lambda mm, g: b1 * mm + c1 * g, state["m"], grad)
+        u = self._second_moment(state, grad)
+        state = self._apply(state, m, grad, u, lr)
+        state.update(m=m, u=u, t=state["t"] + 1, lr_prev=lr)
+        return state
+
+
+class DanaNadam(NadamASGD):
+    """DANA-Nadam: per-worker first moments m^i with the O(k) running sum
+    m0 = sum_j m^j, the shared second moment u, and the DANA look-ahead
+    in the adaptive geometry:
+
+        send:  theta_hat = theta - lr * b1 * m0 / (sqrt(u) + eps)
+    """
+
+    name = "dana-nadam"
+    send_source = "m0"
+    send_gamma = True         # b1 IS hp.momentum
+    send_adaptive = True      # / (sqrt(u) + EPS)
+
+    def init(self, params, num_workers):
+        s = self._base_state(params, num_workers)
+        s["m"] = _stacked_zeros(s["theta0"], num_workers)
+        s["m0"] = tree_zeros_like(s["theta0"])
+        s["u"] = tree_zeros_like(s["theta0"])
+        return s
+
+    def receive(self, state, i, grad, now=0.0):
+        b1, c1, _, _ = self._moments()
+        lr = self.schedule(state["t"])
+        state = dict(state)
+        mi_old = tree_index(state["m"], i)                 # views of row i
+        mi = tree_map(lambda mm, g: b1 * mm + c1 * g, mi_old, grad)
+        # O(k) sum (App. A.2), BEFORE row i is overwritten
+        m0 = tree_add(tree_sub(state["m0"], mi_old), mi)
+        u = self._second_moment(state, grad)
+        state = self._apply(state, mi, grad, u, lr)
+        state.update(m=tree_set_index(state["m"], i, mi), m0=m0, u=u,
+                     t=state["t"] + 1, lr_prev=lr)
+        return state
+
+
+class GapAware(Algorithm):
+    """Gap-Aware staleness mitigation (Barkai, Hakimi & Schuster 2020,
+    the paper's App. C "GA"), simplified: each incoming gradient is
+    damped by worker i's gap relative to the running average step size,
+
+        penalty_i = 1 + G(theta0 - theta_sent_i) / max(avg_step, eps)
+        ghat      = g / penalty_i
+
+    on top of per-worker momentum (like Multi-ASGD).  ``avg_step`` (an
+    EMA of the RMS master step) is a 0-d tensor on the state's device.
+    """
+
+    name = "ga-asgd"
+    EMA = 0.99
+    snapshot_key = "sent"
+
+    def init(self, params, num_workers):
+        s = self._base_state(params, num_workers)
+        s["v"] = _stacked_zeros(s["theta0"], num_workers)
+        s["vscale"] = self._vscale_init()
+        s["sent"] = _stacked_broadcast(s["theta0"], num_workers)
+        s["avg_step"] = torch.tensor(
+            1e-8, dtype=torch.float32,
+            device=tree_leaves(s["theta0"])[0].device)
+        return s
+
+    def receive(self, state, i, grad, now=0.0):
+        g = _F32(self.hp.momentum)
+        lr, vscale = self._lr_and_vscale(state)
+        state = dict(state)
+        gap = tree_gap(state["theta0"], tree_index(state["sent"], i))
+        penalty = 1.0 + gap / torch.clamp(state["avg_step"], min=1e-12)
+        ghat = tree_scale(1.0 / penalty, grad)
+        vi = tree_axpy(g, tree_index(state["v"], i),
+                       tree_scale(_F32(1.0) / vscale, ghat))
+        state["theta0"] = tree_axpy(-lr * vscale, vi, state["theta0"])
+        # the RMS size of one master update (the gap's unit)
+        step_rms = lr * vscale * tree_l2(vi) / np.sqrt(_F32(tree_size(vi)))
+        state["avg_step"] = (self.EMA * state["avg_step"]
+                             + (1 - self.EMA) * step_rms)
+        state["v"] = tree_set_index(state["v"], i, vi)
+        state["vscale"] = vscale
+        state["t"] = state["t"] + 1
+        state["lr_prev"] = lr
+        return state
+
+
 REGISTRY: dict[str, type[Algorithm]] = {
-    cls.name: cls for cls in [ASGD, NagASGD, MultiASGD, DanaZero, DanaSlim]
+    cls.name: cls for cls in [
+        ASGD, SAASGD, NagASGD, MultiASGD, DCASGD, LWP, DanaZero, DanaSlim,
+        DanaDC, DanaHetero, NadamASGD, DanaNadam, GapAware]
 }
+
+# the rest of the JAX package's registry: ROADMAP.md item A1
+NOT_PORTED = ("ssgd", "easgd", "dana-easgd", "yellowfin")
 
 
 def make_algorithm(name: str, hp: HyperParams = HyperParams(),
                    schedule: Schedule | None = None, **kw) -> Algorithm:
-    if name not in REGISTRY:
+    if name in NOT_PORTED:
         raise NotImplementedError(
-            f"algorithm {name!r} is not ported yet (ported: "
-            f"{sorted(REGISTRY)}); ROADMAP.md lists the order of the rest")
+            f"algorithm {name!r} is not ported yet: ROADMAP.md item A1")
+    if name not in REGISTRY:
+        raise ValueError(f"unknown algorithm {name!r}; "
+                         f"choose from {sorted(REGISTRY)}")
     return REGISTRY[name](hp, schedule, **kw)

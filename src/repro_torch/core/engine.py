@@ -32,9 +32,10 @@ class SimulationConfig:
     exec_model: GammaModel = GammaModel()
     record_telemetry: bool = True
     # Run the master hot path on flat (R, 128) state through the batched
-    # update kernel and the send-view kernel (kernels/flat_update; the
-    # plain versions for CPU tensors).  Raises for algorithms without a
-    # flat path.
+    # update kernels and the send-view kernel (kernels/flat_update; the
+    # plain versions for CPU tensors): every flat-eligible member,
+    # ga-asgd through the gap-aware kernel.  Raises for algorithms
+    # without a flat path.
     use_kernel: bool = False
     device: str = "cuda"
 
@@ -81,6 +82,14 @@ def run_simulation(
         master_view = algo_exec.master_view
     state = algo_exec.init(params, n)
 
+    # sent-snapshot members (dc-asgd, dana-dc, ga-asgd) refresh the
+    # applying worker's snapshot on every send, so the age of the
+    # snapshot a message is applied against equals its lag; the other
+    # members record NaN (the series stays row-aligned either way)
+    from ..kernels.flat_update import family_spec_for
+    fam = family_spec_for(algo)
+    sent_family = fam is not None and fam.sent_key is not None
+
     views: list[Pytree] = []
     pull_step = [0] * n
     heap: list[tuple[float, int]] = []
@@ -104,7 +113,9 @@ def run_simulation(
         state, new_view = algo_exec.receive_send(state, i, grad, t_now)
         if cfg.record_telemetry:
             history.record(time=t_now, step=state["t"], worker=i,
-                           lag=lag, gap=gap, grad_norm=gnorm)
+                           lag=lag, gap=gap, grad_norm=gnorm,
+                           staleness=float(lag) if sent_family
+                           else float("nan"))
         views[i] = new_view
         pull_step[i] = state["t"]
         done += 1

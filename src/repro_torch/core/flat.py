@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from .types import flatten_up_to, tree_flatten, tree_unflatten
@@ -109,7 +110,12 @@ class ScalarLane:
 
     Slot j of worker i's lane row holds the scalar named ``names[j]``;
     lanes beyond ``len(names)`` are zero.  The lane is not part of the
-    row space.
+    row space.  The layout is the JAX package's, but the port keeps its
+    lanes on the HOST as float32 numpy arrays: every lane value is read
+    or advanced per message (staleness stamps, message timestamps), and
+    a host array lets the master compute those scalars without waiting
+    on the device.  Every method returns a new array; none writes the
+    lane it is given.
     """
 
     def __init__(self, names):
@@ -122,34 +128,31 @@ class ScalarLane:
         self.names = names
         self.index = {n: j for j, n in enumerate(names)}
 
-    def init(self, num_workers: int, *, device="cuda",
-             **values) -> torch.Tensor:
+    def init(self, num_workers: int, **values) -> np.ndarray:
         """Zeroed (N, 128) lane; ``values`` seeds named columns with a
         scalar or an (N,) vector."""
-        lane = torch.zeros((num_workers, LANES), dtype=torch.float32,
-                           device=device)
+        lane = np.zeros((num_workers, LANES), np.float32)
         for name, v in values.items():
-            lane[:, self.index[name]] = torch.as_tensor(
-                v, dtype=torch.float32, device=device)
+            lane[:, self.index[name]] = np.asarray(v, np.float32)
         return lane
 
-    def pack(self, cols: dict) -> torch.Tensor:
-        """{name: (N,) tensor} -> (N, 128) f32 lane (zero-padded)."""
+    def pack(self, cols: dict) -> np.ndarray:
+        """{name: (N,) array} -> (N, 128) f32 lane (zero-padded)."""
         first = next(iter(cols.values()))
-        return self.init(first.shape[0], device=first.device, **cols)
+        return self.init(len(first), **cols)
 
-    def unpack(self, lane: torch.Tensor) -> dict:
+    def unpack(self, lane: np.ndarray) -> dict:
         """(N, 128) lane -> {name: (N,) f32 column}."""
-        return {n: lane[:, j] for j, n in enumerate(self.names)}
+        return {n: self.get(lane, n) for n in self.names}
 
-    def get(self, lane: torch.Tensor, name: str) -> torch.Tensor:
-        return lane[:, self.index[name]]
+    def get(self, lane: np.ndarray, name: str) -> np.ndarray:
+        return np.array(lane[:, self.index[name]], np.float32)
 
-    def set_at(self, lane: torch.Tensor, name: str, i,
-               value) -> torch.Tensor:
-        """Lane with worker i's ``name`` slot <- value (a new tensor)."""
-        out = lane.clone()
-        out[i, self.index[name]] = float(value)
+    def set_at(self, lane: np.ndarray, name: str, i,
+               value) -> np.ndarray:
+        """Lane with worker i's ``name`` slot <- value (a new array)."""
+        out = np.array(lane, np.float32)
+        out[i, self.index[name]] = value
         return out
 
 
@@ -158,3 +161,8 @@ class ScalarLane:
 RATE_INTERVAL = "interval"
 RATE_LAST_T = "last_t"
 RATE_LANE = ScalarLane((RATE_INTERVAL, RATE_LAST_T))
+
+# staleness slot: the master step worker i's view (and ``sent``
+# snapshot) was sent at, so t - lane[i] is its age in master updates
+SENT_STEP = "sent_step"
+SENT_LANE = ScalarLane((SENT_STEP,))

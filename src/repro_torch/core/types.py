@@ -96,6 +96,10 @@ def tree_sub(a: Pytree, b: Pytree) -> Pytree:
     return tree_map(torch.sub, a, b)
 
 
+def tree_mul(a: Pytree, b: Pytree) -> Pytree:
+    return tree_map(torch.mul, a, b)
+
+
 def tree_scale(s, tree: Pytree) -> Pytree:
     return tree_map(lambda x: s * x, tree)
 
@@ -104,6 +108,15 @@ def tree_axpy(a, x: Pytree, y: Pytree) -> Pytree:
     """a*x + y, elementwise over the tree (two rounded operations, as the
     un-jitted JAX expression)."""
     return tree_map(lambda xi, yi: a * xi + yi, x, y)
+
+
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded f32 sqrt.  PyTorch's CPU ``torch.sqrt`` is one
+    bit off on some f32 inputs (``jnp.sqrt`` and CUDA's ``sqrtf`` are
+    not); the double route rounds once."""
+    if x.device.type == "cpu":
+        return torch.sqrt(x.double()).float()
+    return torch.sqrt(x)
 
 
 def tree_sq_l2(tree: Pytree) -> torch.Tensor:

@@ -19,7 +19,8 @@ for them together.
 ``LAUNCHES`` counts kernel launches per kernel name.  The wrappers call
 ``count(name)`` where they launch a kernel and nowhere else, so a run
 can show that its path went through the kernels (``reset_launches``
-before it, ``launches`` after).
+before it, ``launches`` after).  A wrapper that applies k messages
+through one kernel's launches per message counts k (``count(name, k)``).
 """
 from __future__ import annotations
 
@@ -46,9 +47,9 @@ _LOCK = threading.Lock()          # builds and loads
 _COUNT_LOCK = threading.Lock()    # launch counters
 
 
-def count(name: str) -> None:
+def count(name: str, n: int = 1) -> None:
     with _COUNT_LOCK:
-        LAUNCHES[name] += 1
+        LAUNCHES[name] += n
 
 
 def reset_launches(names=None) -> None:

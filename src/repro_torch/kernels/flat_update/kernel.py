@@ -1,6 +1,7 @@
-"""The batched flat master update on the card: wrapper of the CUDA kernel
-``flat_update_batch`` (``csrc/flat_update.cu``, which states its design
-and bound).
+"""The batched flat master updates on the card: wrappers of the CUDA
+kernels ``flat_update_batch`` (``csrc/flat_update.cu``) and
+``gap_update`` (``csrc/gap_update.cu``); each source states its kernel's
+design and bound.
 
 It replaces both TPU lowerings of the JAX package's ``kernel.py``: the
 full-slab ``flat_master_update_batch_2d`` and the scalar-prefetch
@@ -17,6 +18,13 @@ sent) is updated in place.  The k gradients may be one (k, R, 128)
 tensor or k separate (R, 128) tensors (no stacking copy); the k hats
 come back as k (R, 128) tensors that each own their storage, so a
 reply view that outlives its batch pins only itself.
+
+``flat_update_batch_gap`` replaces the TPU's gap-aware
+``gap_master_update_1``, chained k times by
+``flat_master_update_batch_gap``: the one member (ga-asgd) whose update
+needs a norm over all rows before it can touch any row.  Its per-message
+scalars and pointers stay on the host and go to the launches as
+arguments; ``avg_step`` stays on the device.
 """
 from __future__ import annotations
 
@@ -124,3 +132,71 @@ def flat_update_batch(theta, v, v0, u2, sent, g, ids, lrs, gammas, cgs,
     _build.check(rc, "flat_update_batch")
     _build.count("flat_update_batch")
     return theta, v, v0, u2, sent, hats, pres
+
+
+GAP_MAX_BLOCKS = 1024          # kMaxBlocks of csrc/gap_update.cu
+
+
+def flat_update_batch_gap(theta, v, sent, avg_step, g, ids, lrs, gammas,
+                          cgs, vscales, *, gap_ema: float, n_elems: int,
+                          telemetry: bool = False):
+    """Launch the gap-aware kernel for k messages: theta (R,128), v and
+    sent (N,R,128), avg_step a 0-d tensor, g (k,R,128) or k (R,128)
+    tensors, all float32 on one CUDA device; ids (k,) host ints in
+    [0, N); lrs/gammas/cgs/vscales (k,) host f32; ``n_elems`` the real
+    (unpadded) element count the gap is normalised by.
+
+    Updates theta, v, sent and avg_step in place and returns (theta, v,
+    sent, avg_step, hats (a list of k (R,128) tensors), pres (k,R,128)
+    or None).
+    """
+    dev = theta.device
+    if dev.type != "cuda":
+        raise ValueError(f"flat_update_batch_gap runs on CUDA tensors, "
+                         f"got {dev}")
+    if theta.dim() != 2:
+        raise ValueError(f"theta must be (R, 128), got {tuple(theta.shape)}")
+    r = theta.shape[0]
+    gs = list(g)
+    n, k = v.shape[0], len(gs)
+    _check("theta", theta, (r, 128), dev)
+    _check("v", v, (n, r, 128), dev)
+    _check("sent", sent, (n, r, 128), dev)
+    for j, gj in enumerate(gs):
+        _check(f"g[{j}]", gj, (r, 128), dev)
+    if not isinstance(avg_step, torch.Tensor) or avg_step.device != dev \
+            or avg_step.dtype != torch.float32 or avg_step.numel() != 1:
+        raise ValueError("avg_step must be a one-element float32 tensor "
+                         f"on {dev}")
+    if k < 1 or r < 1 or n < 1:
+        raise ValueError(f"empty batch or state: k={k}, R={r}, N={n}")
+    if not 0 < n_elems <= r * 128:
+        raise ValueError(f"n_elems must be in (0, {r * 128}], got {n_elems}")
+    ids = np.ascontiguousarray(ids, np.int32)
+    if ids.shape != (k,) or ids.min() < 0 or ids.max() >= n:
+        raise ValueError(f"ids must be ({k},) in [0, {n}), got {ids}")
+    hats = [torch.empty((r, 128), dtype=torch.float32, device=dev)
+            for _ in range(k)]
+    pres = (torch.empty((k, r, 128), dtype=torch.float32, device=dev)
+            if telemetry else None)
+    partials = torch.empty((2 * GAP_MAX_BLOCKS,), dtype=torch.float32,
+                           device=dev)
+    g_ptrs = np.asarray([gj.data_ptr() for gj in gs], np.uint64)
+    hat_ptrs = np.asarray([h.data_ptr() for h in hats], np.uint64)
+    scal = np.ascontiguousarray(
+        [np.asarray(x, np.float32).reshape(k)
+         for x in (lrs, gammas, cgs, vscales)], np.float32)
+    # f32-rounded like the plain version's sqrt(float32(n_elems))
+    sqrt_p = np.sqrt(np.float32(n_elems), dtype=np.float32)
+    lib = _build.GAP_LIB.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.gap_update_batch(
+            _ptr(theta), _ptr(v), _ptr(sent), _ptr(avg_step),
+            _ptr(partials), _ptr(pres), g_ptrs.ctypes.data,
+            hat_ptrs.ctypes.data, ids.ctypes.data, scal.ctypes.data, r, n,
+            k, float(sqrt_p), float(np.float32(gap_ema)),
+            float(np.float32(1 - gap_ema)), stream)
+    _build.check(rc, "gap_update")
+    _build.count("gap_update", k)
+    return theta, v, sent, avg_step, hats, pres

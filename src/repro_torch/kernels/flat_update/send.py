@@ -5,10 +5,13 @@ Every look-ahead send in the family is the same shape over flat rows:
     view = theta - c * sum_j w[j] * slab[j]          [/ (sqrt(u2) + eps)]
 
 with a (N, R, 128) slab, an (N,) weight vector, and a host scalar
-c = lr(t) [* gamma] [* vscale] (``SendSpec`` in ``ops.py`` says which
-factors an algorithm uses):
+c = lr(t) [* gamma] [* tau] [* vscale] (``SendSpec`` in ``ops.py`` says
+which factors an algorithm uses):
 
-  dana-zero             slab = v0[None],  w = [1]      c = lr*gamma*vs
+  dana-zero / dana-dc   slab = v0[None],  w = [1]      c = lr*gamma*vs
+  dana-nadam            slab = m0[None],  w = [1]      c = lr*b1, adaptive
+  lwp                   slab = v[None],   w = [1]      c = lr*tau*vs
+  dana-hetero           slab = v (all N), w = r_j/r_i  c = lr*gamma*vs
   asgd / theta-senders  no reduction at all: the view IS theta
 
 ``flat_send_view`` launches the CUDA kernel ``send_view``
@@ -23,7 +26,7 @@ import torch
 
 from . import _build
 from .kernel import _check, _ptr
-from .ref import sqrt_rn
+from ...core.types import sqrt_rn
 
 
 def flat_send_view_ref(theta, slab, w, c, u2=None, eps: float = 1e-8):

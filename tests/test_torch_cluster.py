@@ -112,14 +112,22 @@ def _assert_same_run(h_c, h_e):
     for key in ("time", "worker", "lag", "step", "gap", "grad_norm",
                 "eval_time", "eval_step", "eval_loss", "eval_metric"):
         assert getattr(h_c, key) == getattr(h_e, key), key
+    # the sent-snapshot staleness column (NaN for snapshot-free members)
+    np.testing.assert_array_equal(h_c.staleness, h_e.staleness)
     _trees_equal(h_c.final_params, h_e.final_params)
+
+
+# members with state beyond the momentum family's: the gap-aware
+# kernel's, the sent snapshot with delay compensation, the staleness
+# lane, and the rate lane fed by message timestamps
+NEW_MEMBERS = ["ga-asgd", "dana-dc", "sa-asgd", "dana-hetero"]
 
 
 # ---------------------------------------------------------------------------
 # (a) deterministic mode == the port's engine, bit for bit
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("flat", [False, True], ids=["tree", "flat"])
-@pytest.mark.parametrize("name", ALGOS)
+@pytest.mark.parametrize("name", ALGOS + NEW_MEMBERS)
 def test_deterministic_cluster_equals_engine(name, flat):
     stats = {}
     h_c = _cluster(name, use_kernel=flat, stats=stats)
@@ -297,6 +305,21 @@ def test_telemetry_recorded_in_live_mode(mode, depth):
     assert "mailbox_depth" in stats["obs_series"]
 
 
+@pytest.mark.parametrize("name,mode,depth", [("ga-asgd", "free", 0),
+                                             ("dc-asgd", "paced", 1)])
+def test_live_snapshot_staleness_is_the_lag(name, mode, depth):
+    """The flat path reads the snapshot staleness from the host lane
+    (coalesced batches, duplicate ids chaining); with pull-ahead the
+    lane undercounts by the depth and the master records the lag."""
+    stats = {}
+    hist = _cluster(name, mode=mode, total_grads=80, coalesce=4,
+                    eval_every=40, time_scale=1e-5, pipeline_depth=depth,
+                    stats=stats)
+    assert stats["flat"] is True and len(hist.staleness) == 80
+    assert hist.staleness == [float(l) for l in hist.lag]
+    assert max(hist.lag) > 0 and all(np.isfinite(hist.eval_loss))
+
+
 def test_dropout_worker_rejoins():
     reg = MetricsRegistry()
     stats = {}
@@ -396,3 +419,15 @@ def test_cluster_cli_compare_engine_is_bit_exact(tmp_path):
     assert proc.returncode == 0, proc.stderr
     assert "BIT-EXACT" in proc.stdout
     assert out.exists()
+
+
+def test_cluster_cli_ga_asgd_compare_engine_is_bit_exact():
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.cluster", "--device",
+         "cpu", "--algo", "ga-asgd", "--mode", "deterministic",
+         "--compare-engine", "--workers", "3", "--grads", "30", "--dim",
+         "8", "--width", "16", "--batch", "8", "--eval-every", "10"],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr
+    assert "BIT-EXACT" in proc.stdout

@@ -60,9 +60,10 @@ def _params0(seed=0):
             for a, b in zip(DIMS[:-1], DIMS[1:])]
 
 
-def _both(name, use_kernel, schedule=None, *, seed=1, jax_kernel=None):
+def _both(name, use_kernel, schedule=None, *, seed=1, jax_kernel=None,
+          lr=0.05):
     p0 = _params0(seed)
-    hp = dict(lr=0.05, momentum=0.9)
+    hp = dict(lr=lr, momentum=0.9)
     kw = dict(num_workers=4, total_grads=60, eval_every=20,
               use_kernel=use_kernel)
     jkw = dict(kw, use_kernel=use_kernel if jax_kernel is None
@@ -86,11 +87,26 @@ def _both(name, use_kernel, schedule=None, *, seed=1, jax_kernel=None):
 CASES = [("dana-zero", None), ("nag-asgd", None), ("dana-slim", None),
          ("dana-zero", dict(base_lr=0.05, num_workers=4, warmup_steps=20,
                             milestones=(45,), decay_factor=0.5))]
+# the members beyond the first five, on both paths (ga-asgd's flat path
+# runs the plain gap-aware update here)
+NEW_MEMBERS = ["sa-asgd", "dc-asgd", "lwp", "dana-dc", "dana-hetero",
+               "nadam-asgd", "dana-nadam", "ga-asgd"]
+SENT_FAMILY = ("dc-asgd", "dana-dc", "ga-asgd")
+# The Nadam pair takes an Adam-sized rate: at lr=0.05 every element moves
+# by about lr per step whatever its gradient, the loss diverges (gradient
+# norms grow 60-fold in 60 steps), and the JAX engine's jitted FMAs,
+# amplified by that growth, leave f32 tolerance of any eager computation
+# (both members equal the eager JAX package bit for bit:
+# test_torch_core.py, test_torch_flat_update.py).
+LR = {"nadam-asgd": 0.005, "dana-nadam": 0.005}
 
 
 def _assert_match(jh, th):
     for key in ("time", "worker", "lag", "step", "eval_step"):
         assert getattr(th, key) == getattr(jh, key), key
+    # the sent-snapshot staleness column: the lag for the snapshot
+    # members, NaN for the rest, in both engines
+    np.testing.assert_array_equal(th.staleness, jh.staleness)
     assert len(th.gap) == 60 and len(th.eval_loss) == 3
     for key in ("gap", "grad_norm", "eval_loss", "eval_metric"):
         np.testing.assert_allclose(getattr(th, key), getattr(jh, key),
@@ -107,6 +123,17 @@ def _assert_match(jh, th):
 @pytest.mark.parametrize("name,schedule", CASES)
 def test_engine_matches_jax_engine(name, schedule, use_kernel):
     _assert_match(*_both(name, use_kernel, schedule))
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+@pytest.mark.parametrize("name", NEW_MEMBERS)
+def test_new_members_match_jax_engine(name, use_kernel):
+    jh, th = _both(name, use_kernel, lr=LR.get(name, 0.05))
+    _assert_match(jh, th)
+    if name in SENT_FAMILY:
+        assert th.staleness == [float(l) for l in th.lag]
+    else:
+        assert np.isnan(th.staleness).all()
 
 
 def test_port_flat_path_tracks_jax_tree_path():
@@ -140,7 +167,7 @@ def test_flat_and_tree_paths_of_the_port_agree_on_cpu():
 
 
 @pytest.mark.parametrize("name", ["asgd", "nag-asgd", "multi-asgd",
-                                  "dana-zero", "dana-slim"])
+                                  "dana-zero", "dana-slim"] + NEW_MEMBERS)
 def test_converted_jax_flat_state_equals_port_init(name):
     p0 = _params0(2)
     jfa = JFlat(jmake(name, JHP(lr=0.03)), use_pallas=False)
@@ -154,6 +181,9 @@ def test_converted_jax_flat_state_equals_port_init(name):
         if isinstance(val, torch.Tensor):
             assert val.dtype == conv[key].dtype
             assert torch.equal(conv[key], val), key
+        elif isinstance(val, np.ndarray):          # a host scalar lane
+            assert conv[key].dtype == val.dtype == np.float32
+            np.testing.assert_array_equal(conv[key], val, err_msg=key)
         else:
             assert conv[key] == val and type(conv[key]) is type(val), key
     assert (tfa.spec.rows, tfa.spec.n_elems) == (jfa.spec.rows,

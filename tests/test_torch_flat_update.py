@@ -24,6 +24,7 @@ from repro.core.algorithms import make_algorithm as jmake
 from repro.core.schedules import Schedule as JSchedule
 from repro.core.types import HyperParams as JHP
 from repro.kernels.flat_update import FlatAlgorithm as JFlat
+from repro.kernels.flat_update import ops as jops
 from repro.kernels.flat_update.kernel import (
     flat_master_update_batch_2d, flat_master_update_batch_prefetch)
 from repro.kernels.flat_update.ref import (
@@ -35,8 +36,11 @@ from repro_torch.convert import flat_state_from_numpy
 from repro_torch.core.algorithms import make_algorithm
 from repro_torch.core.schedules import Schedule
 from repro_torch.core.types import HyperParams
-from repro_torch.kernels.flat_update import (FlatAlgorithm,
+from repro_torch.core.algorithms import REGISTRY
+from repro_torch.kernels.flat_update import (FLAT_ELIGIBLE, SEND_KERNEL,
+                                             FlatAlgorithm,
                                              flat_master_update_batch,
+                                             kernel_eligible,
                                              flat_send_view,
                                              flat_send_view_ref, launches,
                                              reset_launches)
@@ -219,14 +223,34 @@ def test_cpu_wrappers_run_the_plain_version_and_launch_nothing():
     assert launches() == {"flat_update_batch": 0, "send_view": 0}
 
 
-FLAT_ALGOS = ["asgd", "nag-asgd", "multi-asgd", "dana-zero", "dana-slim"]
+FLAT_ALGOS = ["asgd", "nag-asgd", "multi-asgd", "dana-zero", "dana-slim",
+              "sa-asgd", "dc-asgd", "lwp", "dana-dc", "dana-hetero",
+              "nadam-asgd", "dana-nadam", "ga-asgd"]
+# reductions that sum in another order than the JAX package's: the
+# N-way tensordot of dana-hetero's weighted hat, and ga-asgd's gap and
+# step norms (the JAX package holds its own gap kernel to the same
+# tolerance); every other member is elementwise and bit-exact
+REDUCING = {"dana-hetero": dict(rtol=1e-6, atol=1e-7),
+            "ga-asgd": dict(rtol=2e-6, atol=2e-7)}
+FLAT_KEYS = ("theta", "v", "v0", "u2", "sent", "avg_step", "wscal", "rate",
+             "lr_prev", "vscale", "tau")
 
 
 @pytest.mark.parametrize("name", FLAT_ALGOS)
 def test_flat_algorithm_batches_bit_equal_to_eager_jax(name):
     """Host-side per-message scalars (moving schedule, vscale chain, hat
-    coefficients) and the batched plain update against the JAX
-    FlatAlgorithm on its reference path, from one converted state."""
+    coefficients, staleness lane, rate lane) and the batched plain update
+    against the JAX FlatAlgorithm on its reference path, from one
+    converted state."""
+    tol = REDUCING.get(name)
+
+    def same(a, b):
+        if tol is None:
+            _bits_equal(a, b)
+        else:
+            np.testing.assert_allclose(np.asarray(a, np.float32),
+                                       np.asarray(b, np.float32), **tol)
+
     rng = np.random.default_rng(3)
     params = [{"w": rng.standard_normal((9, 7)).astype(np.float32),
                "b": rng.standard_normal(7).astype(np.float32)},
@@ -241,30 +265,67 @@ def test_flat_algorithm_batches_bit_equal_to_eager_jax(name):
         js = jfa.init(jax.tree.map(jnp.asarray, params), 4)
         ts = tfa.adopt(tfa.algo.init(
             jax.tree.map(torch.from_numpy, params), 4))
+        jv, js = jfa.send_flat(js, jnp.int32(1))   # a pull: stamps lanes
+        tv, ts = tfa.send_flat(ts, 1)
+        same(tv, jv)
+        now = 0.0
         for batch in ([0, 2, 0], [3], [1, 1, 2, 3]):
             g = rng.standard_normal((len(batch), tfa.spec.rows, 128)) \
                 .astype(np.float32)
             g[:, -1] = 0.0                      # the padding tail stays 0
+            nows = now + np.cumsum(rng.random(len(batch)) + 0.2)
+            now = float(nows[-1])
             js, jh, _ = jfa.apply_batch(js, jnp.asarray(batch, jnp.int32),
-                                        jnp.asarray(g))
-            ts, th, _ = tfa.apply_batch(ts, batch, torch.from_numpy(g))
-            _bits_equal(th, jh)
-            for key in ("theta", "v", "v0"):
-                if key in js:
-                    _bits_equal(ts[key], js[key])
+                                        jnp.asarray(g),
+                                        jnp.asarray(nows, jnp.float32))
+            ts, th, _ = tfa.apply_batch(ts, batch, torch.from_numpy(g),
+                                        nows)
+            same(torch.stack(th), jh)
             assert ts["t"] == int(js["t"])
-            for key in ("lr_prev", "vscale"):
+            for key in FLAT_KEYS:
+                assert (key in ts) == (key in js), key
                 if key in js:
-                    _bits_equal(ts[key], js[key])
-        jv, _ = jfa.send_flat(js, jnp.int32(2))
-        tv, _ = tfa.send_flat(ts, 2)
-        _bits_equal(tv, jv)
+                    same(ts[key], js[key])
+        jv, js = jfa.send_flat(js, jnp.int32(2))
+        tv, ts = tfa.send_flat(ts, 2)
+        same(tv, jv)
+        for key in ("sent", "wscal"):
+            if key in js:
+                same(ts[key], js[key])
+        stale = tfa.staleness(ts)
+        assert (stale is None) == (jfa.staleness(js) is None)
+        if stale is not None:
+            _bits_equal(stale, jfa.staleness(js))
+            _bits_equal(tfa.batch_staleness(ts, [2, 0, 2], 3),
+                        jfa.batch_staleness(js, jnp.asarray([2, 0, 2]), 3))
     # the JAX state converted through numpy steps on as the port's own
     conv = flat_state_from_numpy({k: np.asarray(v) for k, v in js.items()},
                                  "cpu")
     assert set(conv) == set(ts)
     for key, val in ts.items():
         if isinstance(val, torch.Tensor):
-            _bits_equal(conv[key], val)
+            assert conv[key].dtype == val.dtype and conv[key].shape == val.shape
+            same(conv[key], val)
+        elif isinstance(val, np.ndarray):        # a host scalar lane
+            assert conv[key].dtype == val.dtype
+            same(conv[key], val)
         else:
             assert conv[key] == val and type(conv[key]) is type(val)
+
+
+def test_flat_eligibility_equals_the_jax_package():
+    """Every registered member has a flat path, and the same members as
+    in the JAX package build their send view with the send kernel."""
+    assert FLAT_ELIGIBLE == jops.FLAT_ELIGIBLE
+    assert SEND_KERNEL == jops.SEND_KERNEL
+    assert sorted(REGISTRY) == sorted(FLAT_ELIGIBLE)
+    for name in FLAT_ELIGIBLE:
+        algo = make_algorithm(name)
+        assert kernel_eligible(algo)
+        fa, jfa = FlatAlgorithm(algo), JFlat(jmake(name))
+        assert (fa.send_spec.source is not None) == (name in SEND_KERNEL)
+        assert fa.send_spec.hat_mode == jfa.send_spec.hat_mode
+        for field in ("sent_key", "sent_view", "gap_aware", "rate_weighted",
+                      "staleness_lr", "uses_vscale", "nesterov",
+                      "shared_momentum", "u2_key", "sum_key"):
+            assert getattr(fa.fam, field) == getattr(jfa.fam, field), field

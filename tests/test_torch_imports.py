@@ -77,3 +77,21 @@ def test_chip_smoke_imports_only_port_torch_numpy_stdlib():
     for name in names:
         assert not _forbidden(name), name
         assert name.split(".")[0] in allowed, name
+
+
+def test_every_cuda_source_is_a_library_of_the_loader():
+    """``kernels/_build.build_all`` (and so ``chip_smoke.py``) builds
+    every CUDA source of the port: each ``csrc/*.cu`` is one Library."""
+    code = (
+        "import json, repro_torch.kernels.dana_update, "
+        "repro_torch.kernels.flat_update\n"
+        "from repro_torch.kernels import _build\n"
+        "print(json.dumps({l.name: str(l.source) for l in "
+        "_build.LIBRARIES}))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    libs = json.loads(out.stdout.strip().splitlines()[-1])
+    assert sorted(map(Path, libs.values())) == sorted(PORT.rglob("*.cu"))
+    assert "gap_update" in libs
