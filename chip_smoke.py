@@ -10,7 +10,9 @@ kernels ``flat_update_batch`` (the batched master update), ``send_view``
 (the look-ahead view) and ``dana_master_update`` (the legacy
 per-message round), ga-asgd through ``gap_update`` (the gap-aware
 master update), and the other flat-eligible members through
-``flat_update_batch`` and ``send_view``.  Full width: the MLP
+``flat_update_batch`` and ``send_view``; and falcon-mamba-7b's serve path
+(``launch.serve.generate`` and the continuous-batching ``serve.Engine``)
+through the Mamba-1 selective scan ``mamba_scan``.  Full width: the MLP
 classifier [2048, 4096, 4096, 10] has 25,214,986 parameters, the size
 of the paper's ImageNet ResNet-50 master state, and 64 workers (the
 paper's largest cluster) hold a 6.46 GB momentum slab (and ga-asgd,
@@ -18,19 +20,24 @@ dana-dc and dc-asgd as large a snapshot slab); batches of 256 per worker
 (16K in total).  Depth is cut to 256 gradients (engine, deterministic
 cluster), 512 (free cluster), 64 (legacy kernel path), 128 (ga-asgd
 engine and deterministic cluster), 256 (ga-asgd free cluster) and 32
-(each other member).
+(each other member).  falcon-mamba-7b runs at its published widths
+(d_model 4096, d_inner 8192, ssm_state 16, conv 4, dt_rank 256, vocab
+65,024) and full depth (64 layers, 7.3B parameters, 14.6 GB in bf16),
+with random weights drawn from a seeded generator on the card.
 
 Phases (one JSON line each):
   device      the card, its power limit, the CUDA and PyTorch versions
   build       nvcc builds every kernel library from csrc/, one nvcc per
               source, all started together (seconds, ptxas report)
-  flat_update_batch / send_view / dana_master_update / gap_update
-              each kernel against its plain PyTorch version on the same
+  flat_update_batch / send_view / dana_master_update / gap_update /
+  mamba_scan  each kernel against its plain PyTorch version on the same
               inputs at its paths' shapes and the other modes, with the
               tolerance stated; CUDA-event times (median of 20) beside
               the least time the card could take (bound) and the plain
               version's time; gap_update also twice on the same inputs,
-              bit for bit
+              bit for bit; mamba_scan at the prefill shape (B=4, S=512,
+              D=8192, N=16), at S=1, at S=77 with a nonzero h0, at N=8,
+              and split in two calls chained through the last state
   main_path   run_simulation with the kernels, then the same run on the
               tree path without kernels: identical event stream, final
               parameters within 1e-3 relative L2, every loss finite
@@ -61,6 +68,19 @@ Phases (one JSON line each):
   members     each other new member (sa-asgd, dc-asgd, lwp, dana-dc,
               dana-hetero, nadam-asgd, dana-nadam) on the engine's
               kernel path and on its tree path, as main_path
+  serve_generate
+              falcon-mamba-7b in bf16, batch 4, prompt 512, 32 new
+              tokens through generate: prefill and decode tokens/s, peak
+              device memory, 2048 mamba_scan launches (one per layer per
+              prefill and decode step); then prefill + one decode step
+              against forward over prompt + token (bf16, atol 0.15)
+  serve_engine
+              the Engine, 4 slots, capacity 512, 8 seeded requests
+              (prompts of 20-250 tokens, 8-24 new tokens): all finish,
+              slots are reused, one mamba_scan per layer per prefill and
+              decode step; each request's first two tokens against a
+              lone prefill (and decode) of its left-padded bucket wherever
+              the top-2 logit margin exceeds 0.15
 Every path runs with the launch counts set to 0 just before it and read
 just after; a path that did not launch its kernels fails.  The last
 lines: the kernel table as JSON, the card's name and power limit, and
@@ -116,6 +136,21 @@ DANA_SRC = "src/repro_torch/kernels/dana_update/csrc/dana_update.cu"
 GAP_SRC = "src/repro_torch/kernels/flat_update/csrc/gap_update.cu"
 EXACT = dict(rtol=0.0, atol=0.0)
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+SCAN_SRC = "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu"
+# mamba_scan: the state rounds as the plain version rounds it (-fmad=false,
+# IEEE expf); y's N-sum is taken in another order, so its error is held
+# against the sum of the magnitudes
+SCAN_TOL = dict(rtol=1e-5, atol=1e-5)
+# exponentials per clock on each SM (special-function units; CUDA C++
+# Programming Guide, arithmetic instruction throughput, compute 9.0)
+SFU_PER_SM_CLOCK = 16
+SERVE_ARCH = "falcon-mamba-7b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 512, 32
+# bf16 logits: the JAX package's own tolerance for prefill + decode
+# against forward (tests/test_models_smoke.py), and the top-2 margin above
+# which two bf16 paths must pick the same token
+SERVE_TOL = dict(rtol=0.15, atol=0.15)
+ENGINE_REQUESTS, ENGINE_SLOTS, ENGINE_CAPACITY = 8, 4, 512
 
 
 def emit(obj):
@@ -173,10 +208,21 @@ class Card:
         self.name = torch.cuda.get_device_name(0)
         self.bw = BANDWIDTH[sku(self.name)]
         self.f32 = F32_RATE[sku(self.name)]
+        self.sms = torch.cuda.get_device_properties(0).multi_processor_count
+        self.max_sm_mhz = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, check=True).stdout.split()[0])
+        self.exp_rate = self.sms * SFU_PER_SM_CLOCK * self.max_sm_mhz * 1e6
 
-    def bound(self, nbytes, nops):
+    def bound(self, nbytes, nops, nexp=0):
+        """The least time (ms): bytes at the memory rate, f32 operations at
+        the f32 rate, exponentials at the special-function units' rate;
+        the largest of the three, and which kind it is."""
         tb, to = nbytes / self.bw * 1e3, nops / self.f32 * 1e3
-        return (tb, "bytes") if tb >= to else (to, "operations")
+        te = nexp / self.exp_rate * 1e3
+        return (tb, "bytes") if tb >= max(to, te) else \
+            (max(to, te), "operations")
 
 
 # -- flat_update_batch --------------------------------------------------
@@ -824,19 +870,283 @@ def phase_cluster_legacy(conf):
     return rec
 
 
+# -- mamba_scan ------------------------------------------------------------
+def scan_inputs(b, s, d, n, seed, zero_h0=False):
+    """Seeded inputs on the card, delta made positive by softplus as the
+    JAX package's kernel test makes it."""
+    from repro_torch.models.recurrent import softplus
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    x, delta = randn(b, s, d), softplus(randn(b, s, d)) * 0.1
+    bm, cm, a = randn(b, s, n), randn(b, s, n), -randn(d, n).abs()
+    h0 = torch.zeros(b, d, n, device="cuda") if zero_h0 else randn(b, d, n)
+    return x, delta, bm, cm, a, h0
+
+
+def scan_bytes_ops(b, s, d, n):
+    """Each input read once, each output written once (x, delta, y; B, C;
+    A; h0, last), the f32 operations (6 per state element per step, 1
+    per channel per step) and the exponentials (1 per state element per
+    step)."""
+    nbytes = 4 * (3 * b * s * d + 2 * b * s * n + d * n + 2 * b * d * n)
+    return nbytes, 6 * b * s * d * n + b * s * d, b * s * d * n
+
+
+def check_scan(card, label, b, s, d, n, seed, zero_h0=False, time_it=False):
+    from repro_torch.kernels.mamba_scan import mamba_scan_ref
+    from repro_torch.kernels.mamba_scan.kernel import mamba_scan_cuda
+    x, dl, bm, cm, a, h0 = scan_inputs(b, s, d, n, seed, zero_h0)
+    y, last = mamba_scan_cuda(x, dl, bm, cm, a, h0)
+    ry, rlast = mamba_scan_ref(x, dl, bm, cm, a, h0)
+    # |y_t| <= C_t . h_t with |x|, |B|, |C|, |h0| (exp(delta*A) > 0)
+    scale = mamba_scan_ref(x.abs(), dl, bm.abs(), cm.abs(), a, h0.abs())[0]
+    torch.cuda.synchronize()
+    errs = {"y": max_err(y, ry, SCAN_TOL, f"mamba_scan {label} y", scale),
+            "last": max_err(last, rlast, SCAN_TOL,
+                            f"mamba_scan {label} last")}
+    rec = {"phase": "mamba_scan", "mode": label, "B": b, "S": s, "D": d,
+           "N": n, "h0": "zero" if zero_h0 else "random",
+           "max_abs_err": max(errs.values()), "max_abs_err_by_output": errs,
+           "last_bit_equal": bool(torch.equal(last, rlast)),
+           "tolerance": SCAN_TOL,
+           "tolerance_reason": "y: the N-sum in another order, against the "
+                               "sum of magnitudes"}
+    if time_it:
+        rec["ms"] = time_ms(lambda: mamba_scan_cuda(x, dl, bm, cm, a, h0))
+        rec["plain_ms"] = time_ms(lambda: mamba_scan_ref(x, dl, bm, cm, a,
+                                                         h0))
+        nbytes, nops, nexp = scan_bytes_ops(b, s, d, n)
+        rec.update(bytes=nbytes, exps=nexp, library_ms=None,
+                   bound_bytes_ms=nbytes / card.bw * 1e3,
+                   bound_f32_ms=nops / card.f32 * 1e3,
+                   bound_exp_ms=nexp / card.exp_rate * 1e3)
+        rec["bound_ms"], rec["bound_by"] = card.bound(nbytes, nops, nexp)
+    emit(rec)
+    return rec
+
+
+def check_scan_chained(b, s, d, n, split, seed):
+    """Two kernel calls chained through the last state against one."""
+    from repro_torch.kernels.mamba_scan.kernel import mamba_scan_cuda
+    x, dl, bm, cm, a, h0 = scan_inputs(b, s, d, n, seed)
+    y, last = mamba_scan_cuda(x, dl, bm, cm, a, h0)
+
+    def part(t, lo, hi):
+        return t[:, lo:hi].contiguous()
+
+    y1, mid = mamba_scan_cuda(*(part(t, 0, split) for t in (x, dl, bm, cm)),
+                              a, h0)
+    y2, last2 = mamba_scan_cuda(*(part(t, split, s) for t in (x, dl, bm, cm)),
+                                a, mid)
+    yc = torch.cat([y1, y2], 1)
+    torch.cuda.synchronize()
+    rec = {"phase": "mamba_scan", "mode": f"chained at t={split}", "B": b,
+           "S": s, "D": d, "N": n,
+           "max_abs_err": max(max_err(yc, y, SCAN_TOL, "chained y"),
+                              max_err(last2, last, SCAN_TOL, "chained last")),
+           "bit_equal_to_one_call": bool(torch.equal(yc, y)
+                                         and torch.equal(last2, last)),
+           "tolerance": SCAN_TOL}
+    emit(rec)
+    return rec
+
+
+def phase_mamba_scan(card):
+    """The prefill shape (its h0 is zero) timed; a decode step, an odd S
+    with a nonzero h0, N=8 and a D that is no multiple of the block; a
+    chained pair."""
+    recs = {"main": check_scan(card, "prefill B=4 S=512 D=8192 N=16 "
+                               "(serve_generate)", SERVE_BATCH, SERVE_PROMPT,
+                               8192, 16, 41, zero_h0=True, time_it=True)}
+    torch.cuda.empty_cache()
+    recs["decode"] = check_scan(card, "decode S=1", SERVE_BATCH, 1, 8192, 16,
+                                42, time_it=True)
+    check_scan(card, "odd S=77, nonzero h0", SERVE_BATCH, 77, 8192, 16, 43)
+    check_scan(card, "N=8, D=1000 (masked edge)", 2, 100, 1000, 8, 44)
+    check_scan_chained(SERVE_BATCH, SERVE_PROMPT, 8192, 16, 200, 45)
+    torch.cuda.empty_cache()
+    return recs
+
+
+# -- falcon-mamba-7b serving -------------------------------------------------
+def serve_model():
+    """falcon-mamba-7b at full width and depth, bf16 weights drawn on the
+    card from a seeded generator, one layer at a time."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.types import tree_leaves
+    from repro_torch.models.api import build_model
+    cfg = get_config(SERVE_ARCH)
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init(gen, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    info = {"init_s": time.perf_counter() - t0,
+            "params": sum(l.numel() for l in tree_leaves(params)),
+            "param_gb": sum(l.numel() * l.element_size()
+                            for l in tree_leaves(params)) / 1e9}
+    return model, params, info
+
+
+def serve_prompts(cfg, seed=0):
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                        size=(SERVE_BATCH, SERVE_PROMPT)),
+                           dtype=torch.int32, device="cuda")
+
+
+def phase_serve_generate(model, params, info):
+    """``generate`` once with the counts set to 0 (after a short warm-up
+    call: cuBLAS handles, the allocator), then prefill + one decode step
+    against forward over prompt + token."""
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.attention import CacheSpec
+    cfg = model.cfg
+    prompts = serve_prompts(cfg)
+    generate(model, params, prompts[:, :64], 2)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    toks, stats = generate(model, params, prompts, SERVE_GEN)
+    counts = launches()
+    peak = torch.cuda.max_memory_allocated()
+    expect = cfg.num_layers * SERVE_GEN
+    spec = CacheSpec(SERVE_PROMPT + 1, None)
+    logits, cache = model.prefill(params, {"tokens": prompts}, spec)
+    tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+    step, _ = model.decode_step(params, tok, cache, spec)
+    del cache
+    full, _ = model.forward(params, {"tokens": torch.cat([prompts, tok], 1)})
+    full = full[:, -1].float()
+    step = step[:, 0].float()
+    torch.cuda.synchronize()
+    finite = all(bool(torch.isfinite(t).all()) for t in (logits, step, full))
+    rec = {"phase": "serve_generate", "arch": cfg.name,
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "d_inner": cfg.d_inner, "ssm_state": cfg.ssm_state,
+           "vocab": cfg.vocab_size, "dtype": "bfloat16",
+           "batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "gen": SERVE_GEN,
+           **info, **stats, "peak_mem_gb": peak / 1e9, "launches": counts,
+           "expected_mamba_scan_launches": expect,
+           "first_tokens_equal_generate": bool(torch.equal(tok[:, 0],
+                                                           toks[:, 0])),
+           "decode_vs_forward_max_abs_err": float((step - full).abs().max()),
+           "logit_abs_max": float(full.abs().max()), "finite": finite,
+           "tolerance": SERVE_TOL, "first_sequence": toks[0].tolist()}
+    emit(rec)
+    if counts["mamba_scan"] != expect:
+        raise AssertionError(f"serve_generate launched mamba_scan "
+                             f"{counts['mamba_scan']} times, expected "
+                             f"{expect}")
+    if toks.shape != (SERVE_BATCH, SERVE_GEN) or not finite:
+        raise AssertionError("serve_generate: wrong token shape or "
+                             "non-finite logits")
+    if not rec["first_tokens_equal_generate"]:
+        raise AssertionError("serve_generate: prefill differs from generate")
+    max_err(step, full, SERVE_TOL, "serve_generate decode vs forward")
+    return rec
+
+
+def _margin_top2(row):
+    top = torch.topk(row.float(), 2).values
+    return float(top[0] - top[1])
+
+
+def phase_serve_engine(model, params):
+    """The Engine over 8 seeded requests with the counts set to 0; then
+    each request's first two tokens against a lone prefill (and decode)
+    of its left-padded bucket, where the top-2 margin is above the bf16
+    tolerance."""
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.serve import Engine, Request
+    cfg = model.cfg
+    rng = np.random.default_rng(1)
+    reqs = [Request(rid=i, prompt=rng.integers(
+        0, cfg.vocab_size, size=int(rng.integers(20, 251))).astype(np.int32),
+        max_new=int(rng.integers(8, 25))) for i in range(ENGINE_REQUESTS)]
+    eng = Engine(model, params, slots=ENGINE_SLOTS, capacity=ENGINE_CAPACITY)
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    steps = 0
+    slot_of = {}                   # request -> the slot it was served in
+    while (eng.queue or eng.active_mask.any()) and steps < 1000:
+        eng.step()
+        steps += 1
+        slot_of.update({r.rid: s for s, r in enumerate(eng.active) if r})
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launches()
+    expect = cfg.num_layers * (ENGINE_REQUESTS + steps)
+    compared = agreed = 0
+    for r in reqs:
+        plen = next(b for b in eng.buckets if len(r.prompt) <= b)
+        toks = np.zeros((1, plen), np.int32)
+        toks[0, -len(r.prompt):] = r.prompt
+        logits, cache = model.prefill(
+            params, {"tokens": torch.as_tensor(toks, device="cuda")},
+            eng.spec)
+        step, _ = model.decode_step(
+            params, torch.tensor([[r.output[0]]], dtype=torch.int32,
+                                 device="cuda"), cache, eng.spec)
+        for row, got in ((logits[0, -1], r.output[0]),
+                         (step[0, -1], r.output[1])):
+            if _margin_top2(row) > SERVE_TOL["atol"]:
+                compared += 1
+                agreed += int(torch.argmax(row)) == got
+    rec = {"phase": "serve_engine", "arch": cfg.name, "slots": ENGINE_SLOTS,
+           "capacity": ENGINE_CAPACITY, "buckets": list(eng.buckets),
+           "requests": ENGINE_REQUESTS,
+           "prompt_lens": [len(r.prompt) for r in reqs],
+           "max_new": [r.max_new for r in reqs], "steps": steps,
+           "slot_of_request": [slot_of.get(r.rid) for r in reqs],
+           "seconds": secs, **eng.stats(), "launches": counts,
+           "expected_mamba_scan_launches": expect,
+           "tokens_compared_with_lone_path": compared,
+           "tokens_agreeing": agreed,
+           "margin_threshold": SERVE_TOL["atol"]}
+    emit(rec)
+    done = {r.rid for r in eng.done}
+    if done != set(range(ENGINE_REQUESTS)) or any(
+            len(r.output) != r.max_new for r in reqs):
+        raise AssertionError("serve_engine: not every request finished "
+                             "with its max_new tokens")
+    if len(slot_of) != ENGINE_REQUESTS or \
+            len(set(slot_of.values())) != ENGINE_SLOTS:
+        raise AssertionError(f"serve_engine: slots not reused: {slot_of}")
+    if counts["mamba_scan"] != expect:
+        raise AssertionError(f"serve_engine launched mamba_scan "
+                             f"{counts['mamba_scan']} times, expected "
+                             f"{expect}")
+    if compared == 0 or agreed != compared:
+        raise AssertionError(f"serve_engine: {agreed} of {compared} tokens "
+                             f"agree with the lone path")
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from repro_torch.kernels import _build, dana_update, flat_update  # noqa: F401
+    from repro_torch.kernels import (  # noqa: F401
+        _build, dana_update, flat_update, mamba_scan)
     card = Card()
     emit({"phase": "device", "nvidia_smi": card.smi, "kind": card.name,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "numpy": np.__version__,
           "python": sys.version.split()[0],
-          "peak_bandwidth_Bps": card.bw, "peak_f32_flops": card.f32})
+          "peak_bandwidth_Bps": card.bw, "peak_f32_flops": card.f32,
+          "sms": card.sms, "max_sm_mhz": card.max_sm_mhz,
+          "peak_exp_per_s": card.exp_rate})
     t0 = time.perf_counter()
     _build.build_all()             # one nvcc per source, all at once
     for lib in _build.LIBRARIES:
@@ -851,6 +1161,7 @@ def main():
     sv = phase_send_view(card)
     du = phase_dana_update(card)
     gu = phase_gap_update(card)
+    ms = phase_mamba_scan(card)
     conf = configuration()
     main_rec, hist_e, final_e = phase_main_path(conf)
     paths = {"main_path": main_rec,
@@ -870,6 +1181,13 @@ def main():
     del conf_ga
     torch.cuda.empty_cache()
     paths.update({f"member {k}": r for k, r in phase_members().items()})
+    torch.cuda.empty_cache()
+    model, params, info = serve_model()
+    paths["serve_generate"] = phase_serve_generate(model, params, info)
+    torch.cuda.empty_cache()
+    paths["serve_engine"] = phase_serve_engine(model, params)
+    del model, params
+    torch.cuda.empty_cache()
     kernels = []
     for name, rec, path, src, replaces in (
             ("flat_update_batch", fu["main"], "main_path", SRC,
@@ -879,7 +1197,9 @@ def main():
             ("dana_master_update", du["main"], "cluster_legacy", DANA_SRC,
              "src/repro/kernels/dana_update/kernel.py:42"),
             ("gap_update", gu["main"], "main_path_ga", GAP_SRC,
-             "src/repro/kernels/flat_update/kernel.py:743")):
+             "src/repro/kernels/flat_update/kernel.py:743"),
+            ("mamba_scan", ms["main"], "serve_generate", SCAN_SRC,
+             "src/repro/kernels/mamba_scan/kernel.py:48")):
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
@@ -895,6 +1215,10 @@ def main():
         kernels[0][f"{key}_k8_cluster_wire"] = fu["cluster"][key]
         kernels[3][f"{key}_k8"] = gu["k8"][key]
     kernels[3]["also_replaces"] = "src/repro/kernels/flat_update/kernel.py:828"
+    for key in ("ms", "bound_ms", "plain_ms", "max_abs_err", "bound_by"):
+        kernels[4][f"{key}_decode_S1"] = ms["decode"][key]
+    for key in ("bound_bytes_ms", "bound_f32_ms", "bound_exp_ms"):
+        kernels[4][key] = ms["main"][key]
     emit({"kernels": kernels})
     print(card.smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": card.name,

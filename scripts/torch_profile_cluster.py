@@ -2,7 +2,7 @@
 """Profile the PyTorch port's free-mode cluster on one GPU: where the
 time goes.
 
-    python3 scripts/torch_profile_cluster.py
+    python3 scripts/torch_profile_cluster.py [--legacy]
 
 Runs ``chip_smoke.py``'s ``cluster_free`` configuration (the full-width
 DANA-Zero cluster, 64 worker threads, coalescing up to 8 messages,
@@ -15,8 +15,12 @@ line: wall seconds and updates per second, the device's busy seconds
 stream) and idle share, device time by name (top 12), the drained-k
 histogram, the master's share of wall time spent in its apply spans,
 and the mean span time per name (master apply, worker gradient, worker
-round trip).  Exits 2 without a CUDA device.
+round trip).  With ``--legacy`` it profiles ``cluster_legacy`` instead
+(deterministic, ``use_kernel=True, flat=False``: one
+``dana_master_update`` per leaf per message; 16 gradients to warm up,
+then 64).  Exits 2 without a CUDA device.
 """
+import argparse
 import json
 import sys
 from pathlib import Path
@@ -28,7 +32,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402  (puts src/ on the path)
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--legacy", action="store_true")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_profile_cluster: no CUDA device", file=sys.stderr)
         return 2
@@ -37,14 +44,20 @@ def main():
     from repro_torch.obs import trace
 
     conf = chip_smoke.configuration()
-    kw = dict(mode="free", coalesce=8, record_telemetry=True)
-    chip_smoke.run_cluster_once(conf, total_grads=128, **kw)   # warm-up
+    if args.legacy:
+        phase, grads, warm = ("profile_cluster_legacy",
+                              chip_smoke.LEGACY_GRADS, 16)
+        kw = dict(mode="deterministic", use_kernel=True, flat=False)
+    else:
+        phase, grads, warm = "profile_cluster_free", chip_smoke.FREE_GRADS, 128
+        kw = dict(mode="free", coalesce=8, record_telemetry=True)
+    chip_smoke.run_cluster_once(conf, total_grads=warm, **kw)   # warm-up
     acts = [torch.profiler.ProfilerActivity.CUDA]
     trace.enable()
     try:
         with torch.profiler.profile(activities=acts) as prof:
             _, stats, counts, wall, peak = chip_smoke.run_cluster_once(
-                conf, total_grads=chip_smoke.FREE_GRADS, **kw)
+                conf, total_grads=grads, **kw)
     finally:
         trace.disable()
     spans: dict = {}
@@ -59,9 +72,8 @@ def main():
                   and a.self_device_time_total > 0), key=lambda x: -x[1])
     busy = sum(d[1] for d in dev) / 1e6
     print(json.dumps({
-        "phase": "profile_cluster_free", "grads": chip_smoke.FREE_GRADS,
-        "workers": chip_smoke.WORKERS, "coalesce": 8, "wall_s": wall,
-        "updates_per_s": chip_smoke.FREE_GRADS / wall,
+        "phase": phase, "grads": grads, "workers": chip_smoke.WORKERS,
+        "options": kw, "wall_s": wall, "updates_per_s": grads / wall,
         "device_busy_s": busy, "device_idle_share": 1.0 - busy / wall,
         "coalesce_counts": stats["coalesce_counts"],
         "master_busy_share": stats["master_busy_s"] / wall,

@@ -1,0 +1,103 @@
+#!/usr/bin/env python3
+"""Profile the PyTorch port's falcon-mamba-7b serve path on one GPU: where
+the time goes.
+
+    python3 scripts/torch_profile_serve.py
+
+Builds the model as ``chip_smoke.py``'s ``serve_generate`` does (full
+width and depth, bf16, random weights from a seed), warms up with a
+short ``generate`` call, then runs ``generate`` (batch 4, prompt 512, 32
+new tokens) once with the launch counts set to 0 and once under
+``torch.profiler`` (CUDA activity only: recording every host op would
+slow the host that sets the decode loop's pace), and the prefill alone
+under it too.  Prints one JSON line: wall seconds, prefill and decode
+tokens per second, the device's busy seconds (the summed device time of
+every kernel, copy and set on the one stream), their number, and the
+idle share for the whole call and for the prefill, the device time by
+name (top 15), and the ``mamba_scan`` kernel's device time per launch.
+Exits 2 without a CUDA device.
+"""
+import json
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+import chip_smoke  # noqa: E402  (puts src/ on the path)
+
+
+def _device_times(prof):
+    cuda = torch.autograd.DeviceType.CUDA
+    return sorted(((a.key, a.self_device_time_total, a.count)
+                   for a in prof.key_averages()
+                   if a.device_type == cuda
+                   and a.self_device_time_total > 0), key=lambda x: -x[1])
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("torch_profile_serve: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.attention import CacheSpec
+
+    model, params, info = chip_smoke.serve_model()
+    prompts = chip_smoke.serve_prompts(model.cfg)
+    generate(model, params, prompts[:, :64], 2)             # warm-up
+    reset_launches()
+    _, stats = generate(model, params, prompts, chip_smoke.SERVE_GEN)
+    counts = launches()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        generate(model, params, prompts, chip_smoke.SERVE_GEN)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = _device_times(prof)
+    busy = sum(d[1] for d in dev) / 1e6
+    spec = CacheSpec(chip_smoke.SERVE_PROMPT + chip_smoke.SERVE_GEN, None)
+    with torch.profiler.profile(activities=acts) as prof_p:
+        t0 = time.perf_counter()
+        model.prefill(params, {"tokens": prompts}, spec)
+        torch.cuda.synchronize()
+        wall_p = time.perf_counter() - t0
+    dev_p = _device_times(prof_p)
+    busy_p = sum(d[1] for d in dev_p) / 1e6
+
+    def scan_ms(rows):
+        hits = [(t, c) for k, t, c in rows if "mamba_scan" in k]
+        return ({"ms_per_launch": sum(t for t, _ in hits) / 1e3
+                 / sum(c for _, c in hits), "launches": sum(
+                     c for _, c in hits)} if hits else None)
+
+    print(json.dumps({
+        "phase": "profile_serve_generate", "arch": model.cfg.name,
+        "batch": chip_smoke.SERVE_BATCH, "prompt": chip_smoke.SERVE_PROMPT,
+        "gen": chip_smoke.SERVE_GEN, **info, **stats, "launches": counts,
+        "profiled_wall_s": wall, "device_busy_s": busy,
+        "device_events": sum(c for _, _, c in dev),
+        "prefill_device_events": sum(c for _, _, c in dev_p),
+        "device_idle_share": 1.0 - busy / wall,
+        "prefill_wall_s": wall_p, "prefill_device_busy_s": busy_p,
+        "prefill_device_idle_share": 1.0 - busy_p / wall_p,
+        "mamba_scan_device": scan_ms(dev),
+        "mamba_scan_device_prefill": scan_ms(dev_p),
+        "device_ms_by_name": [
+            {"name": k[:80], "ms": t / 1e3, "count": c}
+            for k, t, c in dev[:15]],
+        "prefill_device_ms_by_name": [
+            {"name": k[:80], "ms": t / 1e3, "count": c}
+            for k, t, c in dev_p[:10]],
+        "device": torch.cuda.get_device_name(0),
+        "nvidia_smi": chip_smoke.nvidia_smi()}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

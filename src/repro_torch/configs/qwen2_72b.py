@@ -1,0 +1,20 @@
+"""qwen2-72b [dense]: 80L d_model=8192 64H (GQA kv=8) d_ff=29568
+vocab=152064, QKV bias. [arXiv:2407.10671]
+"""
+from .base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="qwen2-72b",
+    arch_type="dense",
+    source="arXiv:2407.10671 (Qwen2)",
+    num_layers=80,
+    d_model=8192,
+    num_heads=64,
+    num_kv_heads=8,
+    head_dim=128,
+    d_ff=29568,
+    vocab_size=152_064,
+    qkv_bias=True,
+    rope="1d",
+    pattern_unit=("attn",),
+)

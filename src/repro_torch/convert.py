@@ -14,7 +14,12 @@ so this module imports no JAX:
   (``wscal``, ``rate``: device arrays in the JAX package) stay host
   float32 arrays of the same (N, 128) layout; the step ``t`` becomes a
   Python int and the other scalars host ``np.float32``, as the port
-  keeps them.
+  keeps them;
+* ``lm_params_from_numpy(tree)``: the JAX ``init_lm`` parameter tree
+  (every leaf through ``np.asarray``) -> the port's tree of the same
+  structure, unit leaves still stacked ``(unit_repeats, ...)``; with
+  ``dtype`` every floating leaf is cast to it (the serve path's cast of
+  every float32 leaf to bfloat16).
 """
 from __future__ import annotations
 
@@ -49,3 +54,12 @@ def flat_state_from_numpy(flat: dict, device="cuda") -> dict:
         else:
             out[key] = np.float32(a)
     return out
+
+
+def lm_params_from_numpy(tree, device="cuda", dtype=None):
+    def leaf(a):
+        t = _tensor(a, device)
+        if dtype is not None and t.is_floating_point():
+            t = t.to(dtype)
+        return t
+    return tree_map(leaf, tree)

@@ -1,1 +1,3 @@
-"""Models; only the toy MLP classifier is ported so far."""
+"""Models: the toy MLP classifier (``toy``) and the LM stack for the
+families ported so far (falcon-mamba: ``api``, ``lm``, ``blocks``,
+``recurrent``, ``common``, ``attention``'s ``CacheSpec``)."""

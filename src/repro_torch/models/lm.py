@@ -1,0 +1,187 @@
+"""Decoder-only LM over the block zoo: init, forward, prefill, decode.
+
+The parameter tree is the JAX package's: ``embed``, ``final_norm``,
+``lm_head``, ``prologue`` (a list of blocks) and ``unit`` (one tree per
+kind of the repeated pattern, every leaf STACKED ``(unit_repeats,
+...)``), so weights carry across leaf by leaf.  The JAX package scans
+the unit with remat; here the layers are a Python loop over the repeat
+index ``r`` (no scan, no remat: PyTorch runs eagerly).  The decode cache
+keeps the JAX layout ``{"prologue": [...], "unit": [{"conv", "ssm"}
+stacked], "t"}``.
+
+``init_lm`` builds a stacked leaf one layer at a time, each layer drawn
+in float32 and cast to ``dtype`` as it is written, so a 7B model
+initialises in the serve type without a float32 copy of the whole
+(falcon-mamba-7b's stacked ``in_proj`` is 17 GB in float32).
+
+Not ported yet: ``lm_loss`` (the training slice), the encoder and the
+modality prefix (ROADMAP A7).
+"""
+from __future__ import annotations
+
+import torch
+
+from ..configs.base import ArchConfig
+from ..core.types import tree_leaves, tree_map
+from .attention import CacheSpec
+from .blocks import (apply_block, decode_block, init_block, init_block_cache,
+                     prefill_block)
+from .common import dense_init, embed_init, rms_norm
+
+
+# ---------------------------------------------------------------------------
+# params
+# ---------------------------------------------------------------------------
+def init_lm(gen, cfg: ArchConfig, device="cuda", dtype=torch.float32):
+    if cfg.is_encdec:
+        raise NotImplementedError("the enc-dec family is not ported yet "
+                                  "(ROADMAP A7)")
+    return {
+        "embed": embed_init(gen, (cfg.vocab_size, cfg.d_model), dtype,
+                            device),
+        "final_norm": torch.zeros((cfg.d_model,), dtype=dtype,
+                                  device=device),
+        "lm_head": dense_init(gen, (cfg.d_model, cfg.vocab_size),
+                              dtype=dtype, device=device),
+        "prologue": [init_block(gen, cfg, kind, device, dtype)
+                     for kind in cfg.pattern_prologue],
+        "unit": [_init_stacked(gen, cfg, kind, cfg.unit_repeats, device,
+                               dtype)
+                 for kind in cfg.pattern_unit],
+    }
+
+
+def _init_stacked(gen, cfg, kind, repeats, device, dtype):
+    stacked = None
+    for r in range(repeats):
+        block = init_block(gen, cfg, kind, device, dtype)
+        if stacked is None:
+            stacked = tree_map(
+                lambda l: l.new_empty((repeats,) + tuple(l.shape)), block)
+        for dst, src in zip(tree_leaves(stacked), tree_leaves(block)):
+            dst[r].copy_(src)
+        del block
+    return stacked
+
+
+def _layer(stacked, r: int):
+    """Layer ``r`` of a stacked tree (views, no copy)."""
+    return tree_map(lambda l: l[r], stacked)
+
+
+def _stack(trees):
+    return tree_map(lambda *ls: torch.stack(ls), *trees)
+
+
+# ---------------------------------------------------------------------------
+# helpers
+# ---------------------------------------------------------------------------
+def _embed_tokens(params, tokens, dtype):
+    emb = params["embed"].to(dtype)
+    return emb[torch.clamp_min(tokens, 0).long()]
+
+
+def _unit_loop(params_unit, x, cfg: ArchConfig, ctx, collect_cache=False,
+               caches=None):
+    """Run the repeated unit over its repeats.
+
+    collect_cache: prefill mode, returns stacked caches.
+    caches: decode mode, consumes and returns stacked caches.
+    """
+    kinds = cfg.pattern_unit
+    if caches is not None:                       # ---- decode
+        new = [[] for _ in kinds]
+        for r in range(cfg.unit_repeats):
+            for j, (p, kind) in enumerate(zip(params_unit, kinds)):
+                x, c = decode_block(_layer(p, r), x, kind, cfg,
+                                    _layer(caches[j], r), ctx)
+                new[j].append(c)
+        return x, 0.0, [_stack(cs) for cs in new]
+
+    aux = 0.0
+    out = [[] for _ in kinds]
+    for r in range(cfg.unit_repeats):
+        for j, (p, kind) in enumerate(zip(params_unit, kinds)):
+            if collect_cache:                    # ---- prefill
+                x, a, cache = prefill_block(_layer(p, r), x, kind, cfg, ctx)
+                out[j].append(cache)
+            else:                                # ---- forward
+                x, a, _ = apply_block(_layer(p, r), x, kind, cfg, ctx)
+            aux = aux + a
+    return x, aux, ([_stack(cs) for cs in out] if collect_cache else None)
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+def forward(params, cfg: ArchConfig, batch, dtype=torch.bfloat16):
+    """Full forward -> (logits (B,S,V), aux_loss).  batch: {"tokens"
+    (B,S) int}."""
+    x = _embed_tokens(params, batch["tokens"], dtype)
+    ctx: dict = {}
+    aux = 0.0
+    for p, kind in zip(params["prologue"], cfg.pattern_prologue):
+        x, a, _ = apply_block(p, x, kind, cfg, ctx)
+        aux = aux + a
+    x, a, _ = _unit_loop(params["unit"], x, cfg, ctx)
+    aux = aux + a
+    x = rms_norm(x, params["final_norm"])
+    return x @ params["lm_head"].to(x.dtype), aux
+
+
+# ---------------------------------------------------------------------------
+# prefill / decode
+# ---------------------------------------------------------------------------
+def prefill(params, cfg: ArchConfig, batch, spec: CacheSpec,
+            dtype=torch.bfloat16):
+    """Prefill the cache from a full prompt; returns (last_logits (B,1,V),
+    cache)."""
+    tokens = batch["tokens"]
+    x = _embed_tokens(params, tokens, dtype)
+    ctx = {"spec": spec}
+    caches = {"prologue": [], "unit": None}
+    for p, kind in zip(params["prologue"], cfg.pattern_prologue):
+        x, _, cache = prefill_block(p, x, kind, cfg, ctx)
+        caches["prologue"].append(cache)
+    x, _, caches["unit"] = _unit_loop(params["unit"], x, cfg, ctx,
+                                      collect_cache=True)
+    x = rms_norm(x, params["final_norm"])
+    logits = x[:, -1:, :] @ params["lm_head"].to(x.dtype)
+    caches["t"] = torch.tensor(x.shape[1], dtype=torch.int32,
+                               device=x.device)
+    return logits, caches
+
+
+def init_cache(cfg: ArchConfig, batch_size: int, spec: CacheSpec,
+               dtype=torch.bfloat16, device="cuda"):
+    """Empty cache for decode-from-scratch (the enc-dec family's encoder
+    output waits for that family)."""
+    def stacked(kind):
+        one = init_block_cache(cfg, kind, batch_size, spec, dtype, device)
+        return tree_map(
+            lambda l: l.new_zeros((cfg.unit_repeats,) + tuple(l.shape)), one)
+
+    return {
+        "prologue": [init_block_cache(cfg, kind, batch_size, spec, dtype,
+                                      device)
+                     for kind in cfg.pattern_prologue],
+        "unit": [stacked(kind) for kind in cfg.pattern_unit],
+        "t": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
+def decode_step(params, cfg: ArchConfig, token, cache, spec: CacheSpec,
+                dtype=torch.bfloat16):
+    """One decode step. token: (B,1) int -> (logits (B,1,V), new cache)."""
+    t = cache["t"]
+    x = _embed_tokens(params, token, dtype)
+    ctx = {"t": t, "spec": spec}
+    new_cache = {"prologue": [], "t": t + 1}
+    for p, kind, c in zip(params["prologue"], cfg.pattern_prologue,
+                          cache["prologue"]):
+        x, c = decode_block(p, x, kind, cfg, c, ctx)
+        new_cache["prologue"].append(c)
+    x, _, new_cache["unit"] = _unit_loop(params["unit"], x, cfg, ctx,
+                                         caches=cache["unit"])
+    x = rms_norm(x, params["final_norm"])
+    return x @ params["lm_head"].to(x.dtype), new_cache

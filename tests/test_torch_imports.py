@@ -39,6 +39,26 @@ NEW_IN_SLICE_2 = (
     "repro_torch.kernels.dana_update.ops", "repro_torch.launch",
     "repro_torch.launch.cluster")
 
+# falcon-mamba serving: configs, the LM stack, the serve steps and CLI,
+# the continuous-batching engine and the selective-scan kernel
+NEW_IN_SLICE_4 = (
+    "repro_torch.configs", "repro_torch.configs.base",
+    "repro_torch.configs.chatglm3_6b", "repro_torch.configs.falcon_mamba_7b",
+    "repro_torch.configs.granite_moe_3b_a800m",
+    "repro_torch.configs.llama4_scout_17b_a16e",
+    "repro_torch.configs.qwen2_1_5b", "repro_torch.configs.qwen2_5_14b",
+    "repro_torch.configs.qwen2_72b", "repro_torch.configs.qwen2_vl_7b",
+    "repro_torch.configs.recurrentgemma_9b",
+    "repro_torch.configs.seamless_m4t_large_v2",
+    "repro_torch.models.common", "repro_torch.models.attention",
+    "repro_torch.models.recurrent", "repro_torch.models.blocks",
+    "repro_torch.models.lm", "repro_torch.models.api",
+    "repro_torch.kernels.mamba_scan", "repro_torch.kernels.mamba_scan.ref",
+    "repro_torch.kernels.mamba_scan.kernel",
+    "repro_torch.kernels.mamba_scan.ops", "repro_torch.launch.steps",
+    "repro_torch.launch.serve", "repro_torch.serve",
+    "repro_torch.serve.scheduler")
+
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
@@ -48,7 +68,7 @@ def _forbidden(name: str) -> bool:
 def test_port_modules_import_no_jax_and_no_repro():
     mods = _port_modules()
     assert "repro_torch.kernels.flat_update.ops" in mods
-    for name in NEW_IN_SLICE_2:
+    for name in NEW_IN_SLICE_2 + NEW_IN_SLICE_4:
         assert name in mods, name
     code = (
         "import importlib, json, sys\n"
@@ -79,12 +99,32 @@ def test_chip_smoke_imports_only_port_torch_numpy_stdlib():
         assert name.split(".")[0] in allowed, name
 
 
+def test_torch_scripts_import_only_port_torch_numpy_stdlib():
+    """The port's scripts (``scripts/torch_*.py``) import no JAX and
+    nothing of the JAX package; they may import ``chip_smoke``."""
+    scripts = sorted((ROOT / "scripts").glob("torch_*.py"))
+    assert ROOT / "scripts" / "torch_profile_serve.py" in scripts
+    allowed = ({"repro_torch", "torch", "numpy", "chip_smoke"}
+               | set(sys.stdlib_module_names))
+    for path in scripts:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                assert not _forbidden(name), (path.name, name)
+                assert name.split(".")[0] in allowed, (path.name, name)
+
+
 def test_every_cuda_source_is_a_library_of_the_loader():
     """``kernels/_build.build_all`` (and so ``chip_smoke.py``) builds
     every CUDA source of the port: each ``csrc/*.cu`` is one Library."""
     code = (
         "import json, repro_torch.kernels.dana_update, "
-        "repro_torch.kernels.flat_update\n"
+        "repro_torch.kernels.flat_update, repro_torch.kernels.mamba_scan\n"
         "from repro_torch.kernels import _build\n"
         "print(json.dumps({l.name: str(l.source) for l in "
         "_build.LIBRARIES}))\n")
@@ -94,4 +134,4 @@ def test_every_cuda_source_is_a_library_of_the_loader():
     assert out.returncode == 0, out.stderr
     libs = json.loads(out.stdout.strip().splitlines()[-1])
     assert sorted(map(Path, libs.values())) == sorted(PORT.rglob("*.cu"))
-    assert "gap_update" in libs
+    assert "gap_update" in libs and "mamba_scan" in libs
