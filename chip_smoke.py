@@ -10,9 +10,12 @@ kernels ``flat_update_batch`` (the batched master update), ``send_view``
 (the look-ahead view) and ``dana_master_update`` (the legacy
 per-message round), ga-asgd through ``gap_update`` (the gap-aware
 master update), and the other flat-eligible members through
-``flat_update_batch`` and ``send_view``; and falcon-mamba-7b's serve path
+``flat_update_batch`` and ``send_view``; falcon-mamba-7b's serve path
 (``launch.serve.generate`` and the continuous-batching ``serve.Engine``)
-through the Mamba-1 selective scan ``mamba_scan``.  Full width: the MLP
+through the Mamba-1 selective scan ``mamba_scan``; and recurrentgemma-9b's
+serve path (the same entry points) through the RG-LRU scan
+``rglru_scan`` and causal sliding-window attention ``swa_attention``.
+Full width: the MLP
 classifier [2048, 4096, 4096, 10] has 25,214,986 parameters, the size
 of the paper's ImageNet ResNet-50 master state, and 64 workers (the
 paper's largest cluster) hold a 6.46 GB momentum slab (and ga-asgd,
@@ -22,22 +25,35 @@ cluster), 512 (free cluster), 64 (legacy kernel path), 128 (ga-asgd
 engine and deterministic cluster), 256 (ga-asgd free cluster) and 32
 (each other member).  falcon-mamba-7b runs at its published widths
 (d_model 4096, d_inner 8192, ssm_state 16, conv 4, dt_rank 256, vocab
-65,024) and full depth (64 layers, 7.3B parameters, 14.6 GB in bf16),
-with random weights drawn from a seeded generator on the card.
+65,024) and full depth (64 layers, 7.3B parameters, 14.6 GB in bf16);
+recurrentgemma-9b (arXiv:2402.19427) at its published widths (d_model
+4096, 16 heads, 1 kv head, head_dim 256, d_ff 12288, d_inner 4096, 16
+RG-LRU heads, conv 4, window 2048, vocab 256,000) and full depth (38
+layers = 2 + 12 x (rec, rec, attn_local), 9.63B parameters, 19.3 GB in
+bf16).  Each model's random weights are drawn from a seeded generator
+on the card; falcon-mamba is freed before recurrentgemma is drawn.
 
 Phases (one JSON line each):
   device      the card, its power limit, the CUDA and PyTorch versions
   build       nvcc builds every kernel library from csrc/, one nvcc per
               source, all started together (seconds, ptxas report)
   flat_update_batch / send_view / dana_master_update / gap_update /
-  mamba_scan  each kernel against its plain PyTorch version on the same
+  mamba_scan / rglru_scan / swa_attention
+              each kernel against its plain PyTorch version on the same
               inputs at its paths' shapes and the other modes, with the
               tolerance stated; CUDA-event times (median of 20) beside
               the least time the card could take (bound) and the plain
               version's time; gap_update also twice on the same inputs,
               bit for bit; mamba_scan at the prefill shape (B=4, S=512,
               D=8192, N=16), at S=1, at S=77 with a nonzero h0, at N=8,
-              and split in two calls chained through the last state
+              and split in two calls chained through the last state;
+              rglru_scan bit for bit at recurrentgemma-9b's prefill shape
+              (B=4, S=512, D=4096), at S=1, at S=77 with D=1000 and a
+              nonzero h0, and chained; swa_attention (bf16 timed, f32
+              checked; 2e-5 f32, 3e-2 bf16) at (B=4, S=512, H=16, K=1,
+              hd=256, window 2048) and (1, 3072, ...), where the band is
+              narrower than the sequence, and at S=1000, window 128, hd
+              64, K=H; beside it SDPA with the band as a boolean mask
   main_path   run_simulation with the kernels, then the same run on the
               tree path without kernels: identical event stream, final
               parameters within 1e-3 relative L2, every loss finite
@@ -81,6 +97,20 @@ Phases (one JSON line each):
               decode step; each request's first two tokens against a
               lone prefill (and decode) of its left-padded bucket wherever
               the top-2 logit margin exceeds 0.15
+  serve_generate_rg
+              recurrentgemma-9b in bf16, batch 4, prompt 512, 32 new
+              tokens: 832 rglru_scan launches (26 rec layers x 32) and 12
+              swa_attention (one per attn_local layer in the prefill);
+              prefill + one decode step against forward (atol 0.15)
+  serve_generate_rg_long
+              batch 1, prompt 3072, 16 new tokens: each local cache
+              (capacity 2048) comes from the roll branch of the ring
+              buffer (shift 1024) and decode writes slots 1024-1039; the
+              same checks over 3073 tokens
+  serve_engine_rg
+              the Engine as serve_engine: 26 rglru_scan launches per
+              admission and per engine step, 12 swa_attention per
+              admission; per-slot steps and ring positions
 Every path runs with the launch counts set to 0 just before it and read
 just after; a path that did not launch its kernels fails.  The last
 lines: the kernel table as JSON, the card's name and power limit, and
@@ -151,6 +181,17 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 512, 32
 # which two bf16 paths must pick the same token
 SERVE_TOL = dict(rtol=0.15, atol=0.15)
 ENGINE_REQUESTS, ENGINE_SLOTS, ENGINE_CAPACITY = 8, 4, 512
+# dense bf16 tensor-core rate by SKU (NVIDIA data sheets), the peak that
+# bounds attention's products on bf16 inputs
+BF16_RATE = {"H100 PCIe": 756e12, "H100 NVL": 835e12, "H100": 989e12,
+             "H200": 989e12}
+RG_ARCH = "recurrentgemma-9b"
+RG_LONG_BATCH, RG_LONG_PROMPT, RG_LONG_GEN = 1, 3072, 16
+RGLRU_SRC = "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu"
+SWA_SRC = "src/repro_torch/kernels/swa_attention/csrc/swa_attention.cu"
+# swa_attention: the JAX package's kernel tolerances (tests/test_kernels.py)
+SWA_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
+           torch.bfloat16: dict(rtol=3e-2, atol=3e-2)}
 
 
 def emit(obj):
@@ -214,6 +255,7 @@ class Card:
              "--format=csv,noheader,nounits"], capture_output=True,
             text=True, check=True).stdout.split()[0])
         self.exp_rate = self.sms * SFU_PER_SM_CLOCK * self.max_sm_mhz * 1e6
+        self.bf16 = BF16_RATE[sku(self.name)]
 
     def bound(self, nbytes, nops, nexp=0):
         """The least time (ms): bytes at the memory rate, f32 operations at
@@ -971,14 +1013,191 @@ def phase_mamba_scan(card):
     return recs
 
 
+# -- rglru_scan ---------------------------------------------------------------
+def rglru_inputs(b, s, d, seed, zero_h0=False):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.sigmoid(torch.randn((b, s, d), device="cuda", generator=g))
+    x = torch.randn((b, s, d), device="cuda", generator=g)
+    h0 = (torch.zeros((b, d), device="cuda") if zero_h0 else
+          torch.randn((b, d), device="cuda", generator=g))
+    return a, x, h0
+
+
+def check_rglru(card, label, b, s, d, seed, zero_h0=False, time_it=False):
+    """Kernel against the plain version, bit for bit (the product and the
+    sum round separately on both sides)."""
+    from repro_torch.kernels.rglru_scan import rglru_scan_ref
+    from repro_torch.kernels.rglru_scan.kernel import rglru_scan_cuda
+    a, x, h0 = rglru_inputs(b, s, d, seed, zero_h0)
+    out, last = rglru_scan_cuda(a, x, h0)
+    rout, rlast = rglru_scan_ref(a, x, h0)
+    torch.cuda.synchronize()
+    rec = {"phase": "rglru_scan", "mode": label, "B": b, "S": s, "D": d,
+           "h0": "zero" if zero_h0 else "random",
+           "max_abs_err": max(max_err(out, rout, EXACT, f"rglru {label} h"),
+                              max_err(last, rlast, EXACT,
+                                      f"rglru {label} last")),
+           "bit_equal": bool(torch.equal(out, rout)
+                             and torch.equal(last, rlast)),
+           "tolerance": EXACT}
+    if time_it:
+        rec["ms"] = time_ms(lambda: rglru_scan_cuda(a, x, h0))
+        rec["plain_ms"] = time_ms(lambda: rglru_scan_ref(a, x, h0))
+        nbytes, nops = 4 * (3 * b * s * d + 2 * b * d), 2 * b * s * d
+        rec.update(bytes=nbytes, flops=nops, library_ms=None)
+        rec["bound_ms"], rec["bound_by"] = card.bound(nbytes, nops)
+    emit(rec)
+    return rec
+
+
+def check_rglru_chained(b, s, d, split, seed):
+    from repro_torch.kernels.rglru_scan.kernel import rglru_scan_cuda
+    a, x, h0 = rglru_inputs(b, s, d, seed)
+    out, last = rglru_scan_cuda(a, x, h0)
+    o1, mid = rglru_scan_cuda(a[:, :split].contiguous(),
+                              x[:, :split].contiguous(), h0)
+    o2, last2 = rglru_scan_cuda(a[:, split:].contiguous(),
+                                x[:, split:].contiguous(), mid)
+    oc = torch.cat([o1, o2], 1)
+    torch.cuda.synchronize()
+    rec = {"phase": "rglru_scan", "mode": f"chained at t={split}", "B": b,
+           "S": s, "D": d,
+           "max_abs_err": max(max_err(oc, out, EXACT, "chained h"),
+                              max_err(last2, last, EXACT, "chained last")),
+           "bit_equal_to_one_call": bool(torch.equal(oc, out)
+                                         and torch.equal(last2, last)),
+           "tolerance": EXACT}
+    emit(rec)
+    return rec
+
+
+def phase_rglru_scan(card):
+    """recurrentgemma-9b's prefill shape (zero h0) and a decode step,
+    timed; an odd S with a D that is no multiple of the block and a
+    nonzero h0; a chained pair."""
+    recs = {"main": check_rglru(card, "prefill B=4 S=512 D=4096 "
+                                "(serve_generate_rg)", SERVE_BATCH,
+                                SERVE_PROMPT, 4096, 51, zero_h0=True,
+                                time_it=True),
+            "decode": check_rglru(card, "decode S=1", SERVE_BATCH, 1, 4096,
+                                  52, time_it=True)}
+    check_rglru(card, "odd S=77, D=1000 (masked edge), nonzero h0",
+                SERVE_BATCH, 77, 1000, 53)
+    check_rglru_chained(SERVE_BATCH, SERVE_PROMPT, 4096, 200, 54)
+    torch.cuda.empty_cache()
+    return recs
+
+
+# -- swa_attention ------------------------------------------------------------
+def band_pairs(s, window):
+    """(query, key) pairs with i - window < j <= i."""
+    w = min(window, s)
+    return w * (w + 1) // 2 + (s - w) * w
+
+
+def check_swa(card, label, b, s, h, kh, hd, window, dtype, seed,
+              time_it=False):
+    """Kernel against the plain version (K/V repeated over each group, as
+    the plain path repeats them) with the JAX package's tolerance; timed:
+    beside it the plain version and SDPA with the band as a boolean
+    mask."""
+    from repro_torch.kernels.swa_attention import swa_attention_ref
+    from repro_torch.kernels.swa_attention.kernel import swa_attention_cuda
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(shape, device="cuda", generator=g).to(dtype)
+               for shape in ((b, s, h, hd), (b, s, kh, hd), (b, s, kh, hd)))
+
+    def plain():
+        return swa_attention_ref(q, k.repeat_interleave(h // kh, 2),
+                                 v.repeat_interleave(h // kh, 2), window)
+
+    out = swa_attention_cuda(q, k, v, window)
+    ref = plain()
+    torch.cuda.synchronize()
+    tol = SWA_TOL[dtype]
+    rec = {"phase": "swa_attention", "mode": label, "B": b, "S": s, "H": h,
+           "K": kh, "hd": hd, "window": window,
+           "dtype": str(dtype).replace("torch.", ""),
+           "max_abs_err": max_err(out.float(), ref.float(), tol,
+                                  f"swa_attention {label}"),
+           "tolerance": tol, "pairs": band_pairs(s, window),
+           "causal_pairs": s * (s + 1) // 2}
+    if time_it:
+        rec["ms"] = time_ms(lambda: swa_attention_cuda(q, k, v, window))
+        rec["plain_ms"] = time_ms(plain)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        pos = torch.arange(s, device="cuda")
+        mask = (pos[None, :] <= pos[:, None]) & \
+            (pos[:, None] - pos[None, :] < window)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        if kh != h:
+            kt, vt = (t.expand(b, h, s, hd) for t in (kt, vt))
+        lib = sdpa(qt, kt, vt, attn_mask=mask).transpose(1, 2)
+        torch.cuda.synchronize()
+        rec["library_max_abs_err"] = float((lib.float() - ref.float())
+                                           .abs().max())
+        rec["library_ms"] = time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask))
+        rec["library"] = ("torch.nn.functional.scaled_dot_product_attention"
+                          " with the band as a boolean mask")
+        es = q.element_size()
+        nbytes = es * (2 * b * s * h * hd + 2 * b * s * kh * hd)
+        nops = 4 * b * h * hd * rec["pairs"]
+        rate = card.bf16 if dtype == torch.bfloat16 else card.f32
+        tb, to = nbytes / card.bw * 1e3, nops / rate * 1e3
+        rec.update(bytes=nbytes, flops=nops, bound_bytes_ms=tb,
+                   bound_ops_ms=to, ops_rate=rate,
+                   bound_ms=max(tb, to),
+                   bound_by="bytes" if tb >= to else "operations")
+    emit(rec)
+    return rec
+
+
+def phase_swa_attention(card):
+    """recurrentgemma-9b's prefill (B=4, S=512, MQA, hd 256, window 2048
+    >= S) and its long prompt (B=1, S=3072, window 2048: a band narrower
+    than the sequence), bf16 (the model's type) timed and f32 checked; a
+    small odd case (S=1000, window 128, hd 64, K=H) in both types."""
+    recs = {}
+    for key, b, s in (("main", SERVE_BATCH, SERVE_PROMPT),
+                      ("long", RG_LONG_BATCH, RG_LONG_PROMPT)):
+        recs[key] = check_swa(card, f"B={b} S={s} H=16 K=1 hd=256 w=2048",
+                              b, s, 16, 1, 256, 2048, torch.bfloat16, 61,
+                              time_it=True)
+        check_swa(card, f"B={b} S={s} H=16 K=1 hd=256 w=2048", b, s, 16, 1,
+                  256, 2048, torch.float32, 62)
+        torch.cuda.empty_cache()
+    for dtype in (torch.float32, torch.bfloat16):
+        check_swa(card, "odd S=1000 w=128 hd=64 K=H", 2, 1000, 4, 4, 64, 128,
+                  dtype, 63)
+    return recs
+
+
+# -- recurrentgemma-9b serving -------------------------------------------------
+def rg_generate_expect(gen):
+    def expect(cfg):
+        kinds = list(cfg.pattern_prologue) + \
+            list(cfg.pattern_unit) * cfg.unit_repeats
+        return {"rglru_scan": kinds.count("rec") * gen,
+                "swa_attention": kinds.count("attn_local")}
+    return expect
+
+
+def rg_engine_expect(cfg, requests, steps):
+    kinds = list(cfg.pattern_prologue) + \
+        list(cfg.pattern_unit) * cfg.unit_repeats
+    return {"rglru_scan": kinds.count("rec") * (requests + steps),
+            "swa_attention": kinds.count("attn_local") * requests}
+
+
 # -- falcon-mamba-7b serving -------------------------------------------------
-def serve_model():
-    """falcon-mamba-7b at full width and depth, bf16 weights drawn on the
-    card from a seeded generator, one layer at a time."""
+def serve_model(arch=SERVE_ARCH):
+    """``arch`` (falcon-mamba-7b by default) at full width and depth, bf16
+    weights drawn on the card from a seeded generator, one layer at a
+    time."""
     from repro_torch.configs import get_config
     from repro_torch.core.types import tree_leaves
     from repro_torch.models.api import build_model
-    cfg = get_config(SERVE_ARCH)
+    cfg = get_config(arch)
     model = build_model(cfg)
     gen = torch.Generator(device="cuda").manual_seed(0)
     torch.cuda.synchronize()
@@ -992,64 +1211,88 @@ def serve_model():
     return model, params, info
 
 
-def serve_prompts(cfg, seed=0):
+def serve_prompts(cfg, seed=0, batch=SERVE_BATCH, prompt=SERVE_PROMPT):
     rng = np.random.default_rng(seed)
     return torch.as_tensor(rng.integers(0, cfg.vocab_size,
-                                        size=(SERVE_BATCH, SERVE_PROMPT)),
+                                        size=(batch, prompt)),
                            dtype=torch.int32, device="cuda")
 
 
-def phase_serve_generate(model, params, info):
+def check_counts(phase, counts, expect):
+    """Every kernel of the path launched exactly as expected."""
+    for name, n in expect.items():
+        if counts[name] != n:
+            raise AssertionError(f"{phase} launched {name} {counts[name]} "
+                                 f"times, expected {n}")
+
+
+def generate_phase(model, params, info, phase, batch, prompt, gen, expect,
+                   seed=0):
     """``generate`` once with the counts set to 0 (after a short warm-up
     call: cuBLAS handles, the allocator), then prefill + one decode step
-    against forward over prompt + token."""
+    against forward over prompt + token.  ``expect(cfg)`` gives each
+    kernel's launch count."""
     from repro_torch.kernels import launches, reset_launches
     from repro_torch.launch.serve import generate
     from repro_torch.models.attention import CacheSpec
     cfg = model.cfg
-    prompts = serve_prompts(cfg)
+    prompts = serve_prompts(cfg, seed, batch, prompt)
     generate(model, params, prompts[:, :64], 2)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    toks, stats = generate(model, params, prompts, SERVE_GEN)
+    toks, stats = generate(model, params, prompts, gen)
     counts = launches()
     peak = torch.cuda.max_memory_allocated()
-    expect = cfg.num_layers * SERVE_GEN
-    spec = CacheSpec(SERVE_PROMPT + 1, None)
+    expected = expect(cfg)
+    spec = CacheSpec(prompt + 1, None)
     logits, cache = model.prefill(params, {"tokens": prompts}, spec)
     tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
-    step, _ = model.decode_step(params, tok, cache, spec)
+    step, cache = model.decode_step(params, tok, cache, spec)
+    ring = {}
+    if "attn_local" in cfg.pattern_unit:        # the last local layer's ring
+        pos = cache["unit"][cfg.pattern_unit.index("attn_local")]["pos"][-1]
+        ring = {"ring_capacity": int(pos.shape[-1]),
+                "ring_slot_of_first_decode": int(
+                    torch.nonzero(pos == prompt)[0, 0]),
+                "ring_oldest_position": int(pos[pos >= 0].min())}
+        if ring["ring_slot_of_first_decode"] != prompt % pos.shape[-1]:
+            raise AssertionError(f"{phase}: decode wrote ring slot "
+                                 f"{ring['ring_slot_of_first_decode']}")
     del cache
     full, _ = model.forward(params, {"tokens": torch.cat([prompts, tok], 1)})
     full = full[:, -1].float()
     step = step[:, 0].float()
     torch.cuda.synchronize()
     finite = all(bool(torch.isfinite(t).all()) for t in (logits, step, full))
-    rec = {"phase": "serve_generate", "arch": cfg.name,
+    rec = {"phase": phase, "arch": cfg.name,
            "layers": cfg.num_layers, "d_model": cfg.d_model,
            "d_inner": cfg.d_inner, "ssm_state": cfg.ssm_state,
            "vocab": cfg.vocab_size, "dtype": "bfloat16",
-           "batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "gen": SERVE_GEN,
+           "batch": batch, "prompt": prompt, "gen": gen,
            **info, **stats, "peak_mem_gb": peak / 1e9, "launches": counts,
-           "expected_mamba_scan_launches": expect,
+           **{f"expected_{k}_launches": v for k, v in expected.items()},
            "first_tokens_equal_generate": bool(torch.equal(tok[:, 0],
                                                            toks[:, 0])),
+           **ring,
            "decode_vs_forward_max_abs_err": float((step - full).abs().max()),
            "logit_abs_max": float(full.abs().max()), "finite": finite,
            "tolerance": SERVE_TOL, "first_sequence": toks[0].tolist()}
     emit(rec)
-    if counts["mamba_scan"] != expect:
-        raise AssertionError(f"serve_generate launched mamba_scan "
-                             f"{counts['mamba_scan']} times, expected "
-                             f"{expect}")
-    if toks.shape != (SERVE_BATCH, SERVE_GEN) or not finite:
-        raise AssertionError("serve_generate: wrong token shape or "
-                             "non-finite logits")
+    check_counts(phase, counts, expected)
+    if toks.shape != (batch, gen) or not finite:
+        raise AssertionError(f"{phase}: wrong token shape or non-finite "
+                             f"logits")
     if not rec["first_tokens_equal_generate"]:
-        raise AssertionError("serve_generate: prefill differs from generate")
-    max_err(step, full, SERVE_TOL, "serve_generate decode vs forward")
+        raise AssertionError(f"{phase}: prefill differs from generate")
+    max_err(step, full, SERVE_TOL, f"{phase} decode vs forward")
     return rec
+
+
+def phase_serve_generate(model, params, info):
+    return generate_phase(
+        model, params, info, "serve_generate", SERVE_BATCH, SERVE_PROMPT,
+        SERVE_GEN, lambda cfg: {"mamba_scan": cfg.num_layers * SERVE_GEN})
 
 
 def _margin_top2(row):
@@ -1057,11 +1300,15 @@ def _margin_top2(row):
     return float(top[0] - top[1])
 
 
-def phase_serve_engine(model, params):
+def phase_serve_engine(model, params, phase="serve_engine",
+                       expect=lambda cfg, requests, steps: {
+                           "mamba_scan": cfg.num_layers * (requests
+                                                           + steps)}):
     """The Engine over 8 seeded requests with the counts set to 0; then
     each request's first two tokens against a lone prefill (and decode)
     of its left-padded bucket, where the top-2 margin is above the bf16
-    tolerance."""
+    tolerance.  ``expect`` gives each kernel's launch count from the
+    requests admitted and the engine steps."""
     from repro_torch.kernels import launches, reset_launches
     from repro_torch.serve import Engine, Request
     cfg = model.cfg
@@ -1084,7 +1331,7 @@ def phase_serve_engine(model, params):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = launches()
-    expect = cfg.num_layers * (ENGINE_REQUESTS + steps)
+    expected = expect(cfg, ENGINE_REQUESTS, steps)
     compared = agreed = 0
     for r in reqs:
         plen = next(b for b in eng.buckets if len(r.prompt) <= b)
@@ -1101,14 +1348,14 @@ def phase_serve_engine(model, params):
             if _margin_top2(row) > SERVE_TOL["atol"]:
                 compared += 1
                 agreed += int(torch.argmax(row)) == got
-    rec = {"phase": "serve_engine", "arch": cfg.name, "slots": ENGINE_SLOTS,
+    rec = {"phase": phase, "arch": cfg.name, "slots": ENGINE_SLOTS,
            "capacity": ENGINE_CAPACITY, "buckets": list(eng.buckets),
            "requests": ENGINE_REQUESTS,
            "prompt_lens": [len(r.prompt) for r in reqs],
            "max_new": [r.max_new for r in reqs], "steps": steps,
            "slot_of_request": [slot_of.get(r.rid) for r in reqs],
            "seconds": secs, **eng.stats(), "launches": counts,
-           "expected_mamba_scan_launches": expect,
+           **{f"expected_{k}_launches": v for k, v in expected.items()},
            "tokens_compared_with_lone_path": compared,
            "tokens_agreeing": agreed,
            "margin_threshold": SERVE_TOL["atol"]}
@@ -1116,18 +1363,15 @@ def phase_serve_engine(model, params):
     done = {r.rid for r in eng.done}
     if done != set(range(ENGINE_REQUESTS)) or any(
             len(r.output) != r.max_new for r in reqs):
-        raise AssertionError("serve_engine: not every request finished "
-                             "with its max_new tokens")
+        raise AssertionError(f"{phase}: not every request finished with "
+                             f"its max_new tokens")
     if len(slot_of) != ENGINE_REQUESTS or \
             len(set(slot_of.values())) != ENGINE_SLOTS:
-        raise AssertionError(f"serve_engine: slots not reused: {slot_of}")
-    if counts["mamba_scan"] != expect:
-        raise AssertionError(f"serve_engine launched mamba_scan "
-                             f"{counts['mamba_scan']} times, expected "
-                             f"{expect}")
+        raise AssertionError(f"{phase}: slots not reused: {slot_of}")
+    check_counts(phase, counts, expected)
     if compared == 0 or agreed != compared:
-        raise AssertionError(f"serve_engine: {agreed} of {compared} tokens "
-                             f"agree with the lone path")
+        raise AssertionError(f"{phase}: {agreed} of {compared} tokens agree "
+                             f"with the lone path")
     return rec
 
 
@@ -1138,7 +1382,8 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.kernels import (  # noqa: F401
-        _build, dana_update, flat_update, mamba_scan)
+        _build, dana_update, flat_update, mamba_scan, rglru_scan,
+        swa_attention)
     card = Card()
     emit({"phase": "device", "nvidia_smi": card.smi, "kind": card.name,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
@@ -1162,6 +1407,8 @@ def main():
     du = phase_dana_update(card)
     gu = phase_gap_update(card)
     ms = phase_mamba_scan(card)
+    rs = phase_rglru_scan(card)
+    sw = phase_swa_attention(card)
     conf = configuration()
     main_rec, hist_e, final_e = phase_main_path(conf)
     paths = {"main_path": main_rec,
@@ -1188,6 +1435,19 @@ def main():
     paths["serve_engine"] = phase_serve_engine(model, params)
     del model, params
     torch.cuda.empty_cache()
+    model, params, info = serve_model(RG_ARCH)
+    paths["serve_generate_rg"] = generate_phase(
+        model, params, info, "serve_generate_rg", SERVE_BATCH, SERVE_PROMPT,
+        SERVE_GEN, rg_generate_expect(SERVE_GEN))
+    torch.cuda.empty_cache()
+    paths["serve_generate_rg_long"] = generate_phase(
+        model, params, {}, "serve_generate_rg_long", RG_LONG_BATCH,
+        RG_LONG_PROMPT, RG_LONG_GEN, rg_generate_expect(RG_LONG_GEN), seed=2)
+    torch.cuda.empty_cache()
+    paths["serve_engine_rg"] = phase_serve_engine(
+        model, params, "serve_engine_rg", rg_engine_expect)
+    del model, params
+    torch.cuda.empty_cache()
     kernels = []
     for name, rec, path, src, replaces in (
             ("flat_update_batch", fu["main"], "main_path", SRC,
@@ -1199,7 +1459,11 @@ def main():
             ("gap_update", gu["main"], "main_path_ga", GAP_SRC,
              "src/repro/kernels/flat_update/kernel.py:743"),
             ("mamba_scan", ms["main"], "serve_generate", SCAN_SRC,
-             "src/repro/kernels/mamba_scan/kernel.py:48")):
+             "src/repro/kernels/mamba_scan/kernel.py:48"),
+            ("rglru_scan", rs["main"], "serve_generate_rg", RGLRU_SRC,
+             "src/repro/kernels/rglru_scan/kernel.py:42"),
+            ("swa_attention", sw["main"], "serve_generate_rg", SWA_SRC,
+             "src/repro/kernels/swa_attention/kernel.py:76")):
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
@@ -1219,6 +1483,13 @@ def main():
         kernels[4][f"{key}_decode_S1"] = ms["decode"][key]
     for key in ("bound_bytes_ms", "bound_f32_ms", "bound_exp_ms"):
         kernels[4][key] = ms["main"][key]
+    for key in ("ms", "bound_ms", "plain_ms", "max_abs_err", "bound_by"):
+        kernels[5][f"{key}_decode_S1"] = rs["decode"][key]
+    for key in ("ms", "bound_ms", "plain_ms", "library_ms", "max_abs_err",
+                "bound_by"):
+        kernels[6][f"{key}_long_S3072"] = sw["long"][key]
+    for key in ("bound_bytes_ms", "bound_ops_ms", "ops_rate", "dtype"):
+        kernels[6][key] = sw["main"][key]
     emit({"kernels": kernels})
     print(card.smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": card.name,

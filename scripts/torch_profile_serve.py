@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
-"""Profile the PyTorch port's falcon-mamba-7b serve path on one GPU: where
-the time goes.
+"""Profile the PyTorch port's serve path on one GPU: where the time goes.
 
-    python3 scripts/torch_profile_serve.py
+    python3 scripts/torch_profile_serve.py [--arch recurrentgemma-9b]
 
-Builds the model as ``chip_smoke.py``'s ``serve_generate`` does (full
-width and depth, bf16, random weights from a seed), warms up with a
-short ``generate`` call, then runs ``generate`` (batch 4, prompt 512, 32
+Builds the model (falcon-mamba-7b by default) as ``chip_smoke.py``'s
+``serve_generate`` and ``serve_generate_rg`` do (full width and depth,
+bf16, random weights from a seed), warms up with a short ``generate``
+call, then runs ``generate`` (batch 4, prompt 512, 32
 new tokens) once with the launch counts set to 0 and once under
 ``torch.profiler`` (CUDA activity only: recording every host op would
 slow the host that sets the decode loop's pace), and the prefill alone
@@ -14,9 +14,11 @@ under it too.  Prints one JSON line: wall seconds, prefill and decode
 tokens per second, the device's busy seconds (the summed device time of
 every kernel, copy and set on the one stream), their number, and the
 idle share for the whole call and for the prefill, the device time by
-name (top 15), and the ``mamba_scan`` kernel's device time per launch.
+name (top 15), and each of the model's hand-written kernels' device time
+per launch (``mamba_scan``; ``rglru_scan`` and ``swa_attention``).
 Exits 2 without a CUDA device.
 """
+import argparse
 import json
 import sys
 import time
@@ -37,7 +39,14 @@ def _device_times(prof):
                    and a.self_device_time_total > 0), key=lambda x: -x[1])
 
 
-def main():
+KERNELS = {"falcon-mamba-7b": ("mamba_scan",),
+           "recurrentgemma-9b": ("rglru_scan", "swa_attention")}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="falcon-mamba-7b", choices=KERNELS)
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_profile_serve: no CUDA device", file=sys.stderr)
         return 2
@@ -47,7 +56,7 @@ def main():
     from repro_torch.launch.serve import generate
     from repro_torch.models.attention import CacheSpec
 
-    model, params, info = chip_smoke.serve_model()
+    model, params, info = chip_smoke.serve_model(args.arch)
     prompts = chip_smoke.serve_prompts(model.cfg)
     generate(model, params, prompts[:, :64], 2)             # warm-up
     reset_launches()
@@ -70,11 +79,16 @@ def main():
     dev_p = _device_times(prof_p)
     busy_p = sum(d[1] for d in dev_p) / 1e6
 
-    def scan_ms(rows):
-        hits = [(t, c) for k, t, c in rows if "mamba_scan" in k]
+    def kernel_ms(rows, name):
+        hits = [(t, c) for k, t, c in rows if name in k]
         return ({"ms_per_launch": sum(t for t, _ in hits) / 1e3
                  / sum(c for _, c in hits), "launches": sum(
                      c for _, c in hits)} if hits else None)
+
+    per_kernel = {}
+    for name in KERNELS[args.arch]:
+        per_kernel[f"{name}_device"] = kernel_ms(dev, name)
+        per_kernel[f"{name}_device_prefill"] = kernel_ms(dev_p, name)
 
     print(json.dumps({
         "phase": "profile_serve_generate", "arch": model.cfg.name,
@@ -86,8 +100,7 @@ def main():
         "device_idle_share": 1.0 - busy / wall,
         "prefill_wall_s": wall_p, "prefill_device_busy_s": busy_p,
         "prefill_device_idle_share": 1.0 - busy_p / wall_p,
-        "mamba_scan_device": scan_ms(dev),
-        "mamba_scan_device_prefill": scan_ms(dev_p),
+        **per_kernel,
         "device_ms_by_name": [
             {"name": k[:80], "ms": t / 1e3, "count": c}
             for k, t, c in dev[:15]],

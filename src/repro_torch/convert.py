@@ -4,7 +4,10 @@ Inputs are numpy only (the caller does ``np.asarray`` on the JAX side),
 so this module imports no JAX:
 
 * ``params_from_numpy(tree)``: a tree of arrays (e.g. the MLP's
-  ``[{"w", "b"}, ...]``) -> the same tree of float tensors;
+  ``[{"w", "b"}, ...]``, or a JAX decode cache, ``prefill``'s or
+  ``init_cache``'s: ``k``, ``v`` bfloat16, ``pos`` and ``t`` int32,
+  ``conv``, ``h``, ``ssm``) -> the same tree of tensors, leaf by leaf in
+  its own type, so both packages can decode from one cache;
 * ``flat_state_from_numpy(flat)``: the JAX ``FlatAlgorithm`` state dict
   of any flat-eligible member (``theta``, ``v``, ``v0``, ``u2``,
   ``sent``, ``wscal``, ``rate``, ``t``, ``lr_prev``, ``vscale``,
@@ -19,7 +22,13 @@ so this module imports no JAX:
   (every leaf through ``np.asarray``) -> the port's tree of the same
   structure, unit leaves still stacked ``(unit_repeats, ...)``; with
   ``dtype`` every floating leaf is cast to it (the serve path's cast of
-  every float32 leaf to bfloat16).
+  every float32 leaf to bfloat16).  Every block kind ported so far
+  carries over leaf by leaf: mamba's, the RG-LRU's (``in_x``,
+  ``in_gate``, ``conv_w``, ``w_a``, ``w_i``, ``lam``, ...), attention's
+  (``wq``, ``wk``, ``wv``, ``wo``) and the MLP's.
+
+numpy arrays of JAX's bfloat16 (``ml_dtypes``) become torch bfloat16
+tensors exactly (through float32, which holds every bfloat16 value).
 """
 from __future__ import annotations
 
@@ -34,6 +43,10 @@ DEVICE_SCALARS = ("avg_step",)                   # 0-d tensors
 
 
 def _tensor(a, device):
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 

@@ -1,12 +1,34 @@
-"""Attention: only the decode cache's geometry is ported so far.
+"""GQA attention: the sliding-window prefill path, the unified ring-buffer
+KV-cache decode path and RoPE.
 
-The attention layers themselves (projections, RoPE, flash and decode
-attention, the KV cache) wait for the recurrentgemma and dense slices
-(ROADMAP A7).
+``flash_attention`` is ported for the one case recurrentgemma runs:
+causal with a sliding window and no segments.  It goes through
+``kernels.swa_attention.swa_attention`` on every device (the CUDA kernel
+on the card, its plain version on the CPU), where the JAX package runs
+its chunked ``jnp`` flash recurrence and names the Pallas kernel as the
+TPU route.  The other cases raise, naming the ROADMAP item that brings
+them: full causal or non-causal attention (the dense and enc-dec
+families, A7(d)), ``segments`` (packed sequences, A7(e)), int8
+(``quant=True``) caches and ``cross_attention`` (A7(d)).
+
+``decode_attention`` is plain PyTorch (einsums in the JAX package, no
+Pallas kernel there).  It takes the step ``t`` as a scalar with ``pos``
+of shape (capacity,), as ``generate`` runs it, or one step per row,
+``t`` of shape (B,) with ``pos`` of shape (B, capacity), as the
+continuous-batching Engine runs it: each row writes its own ring slot
+``t_b % capacity``, masks against its own ``t_b`` and takes RoPE position
+``t_b``.
 """
 from __future__ import annotations
 
 import dataclasses
+
+import torch
+
+from ..kernels.swa_attention import swa_attention
+from .common import dense_init, rope_1d, rope_2d_partial, rope_mrope
+
+NEG_INF = -1e30
 
 
 @dataclasses.dataclass(frozen=True)
@@ -14,3 +36,157 @@ class CacheSpec:
     capacity: int               # full seq len, or window size for SWA
     window: int | None          # sliding window, None = full attention
     quant: bool = False         # int8 KV cache (per-position/head scales)
+
+
+def _unported(what: str, item: str):
+    return NotImplementedError(f"{what} is not ported yet: ROADMAP {item}")
+
+
+# ---------------------------------------------------------------------------
+# params
+# ---------------------------------------------------------------------------
+def init_attention(gen, d_model, num_heads, num_kv_heads, head_dim,
+                   qkv_bias=False, device="cuda", dtype=torch.float32):
+    def dense(shape, in_axes=(0,)):
+        return dense_init(gen, shape, in_axes, dtype, device)
+
+    p = {
+        "wq": dense((d_model, num_heads, head_dim)),
+        "wk": dense((d_model, num_kv_heads, head_dim)),
+        "wv": dense((d_model, num_kv_heads, head_dim)),
+        "wo": dense((num_heads, head_dim, d_model), in_axes=(0, 1)),
+    }
+    if qkv_bias:
+        for name, heads in (("bq", num_heads), ("bk", num_kv_heads),
+                            ("bv", num_kv_heads)):
+            p[name] = torch.zeros((heads, head_dim), dtype=dtype,
+                                  device=device)
+    return p
+
+
+def _proj(x, w):
+    """einsum('bsd,dhk->bshk') as one matrix product."""
+    d, h, k = w.shape
+    return (x @ w.to(x.dtype).reshape(d, h * k)).reshape(
+        *x.shape[:-1], h, k)
+
+
+def _project_qkv(params, x, x_kv=None):
+    if x_kv is not None:
+        raise _unported("cross-attention", "A7(d), the enc-dec family")
+    q = _proj(x, params["wq"])
+    k = _proj(x, params["wk"])
+    v = _proj(x, params["wv"])
+    if "bq" in params:
+        q = q + params["bq"].to(x.dtype)
+        k = k + params["bk"].to(x.dtype)
+        v = v + params["bv"].to(x.dtype)
+    return q, k, v
+
+
+def apply_rope(q, k, rope, positions):
+    """rope: 'none'|'1d' ('2d' and 'mrope' raise); positions: (B,S)."""
+    if rope == "none":
+        return q, k
+    if rope == "1d":
+        return rope_1d(q, positions), rope_1d(k, positions)
+    if rope == "2d":
+        return rope_2d_partial(q, positions), rope_2d_partial(k, positions)
+    if rope == "mrope":
+        return rope_mrope(q, positions), rope_mrope(k, positions)
+    raise ValueError(rope)
+
+
+def attention_block_output(params, attn_out, x_dtype):
+    """einsum('bshk,hkd->bsd', attn_out, wo)."""
+    h, k, d = params["wo"].shape
+    return attn_out.reshape(*attn_out.shape[:-2], h * k) @ \
+        params["wo"].to(x_dtype).reshape(h * k, d)
+
+
+# ---------------------------------------------------------------------------
+# flash attention (train / prefill)
+# ---------------------------------------------------------------------------
+def flash_attention(q, k, v, *, causal=True, window=None, segments=None):
+    """q: (B,S,H,hd); k, v: (B,S,K,hd) with H = K*G.  Returns (B,S,H,hd).
+
+    Only causal sliding-window attention without segments is ported; it
+    is ``swa_attention``'s function."""
+    if segments is not None:
+        raise _unported("attention over packed segments", "A7(e)")
+    if not causal:
+        raise _unported("non-causal attention", "A7(d), the enc-dec family")
+    if window is None:
+        raise _unported("full causal attention", "A7(d), the dense family")
+    return swa_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                         int(window))
+
+
+def cross_attention(q, k, v):
+    raise _unported("cross-attention", "A7(d), the enc-dec family")
+
+
+# ---------------------------------------------------------------------------
+# decode with a unified (full or ring-buffer) KV cache
+# ---------------------------------------------------------------------------
+def init_kv_cache(batch, capacity, num_kv_heads, head_dim,
+                  dtype=torch.bfloat16, quant=False, device="cuda"):
+    if quant:
+        raise _unported("the int8 KV cache", "A7(d)")
+    return {
+        "k": torch.zeros((batch, capacity, num_kv_heads, head_dim),
+                         dtype=dtype, device=device),
+        "v": torch.zeros((batch, capacity, num_kv_heads, head_dim),
+                         dtype=dtype, device=device),
+        "pos": torch.full((capacity,), -1, dtype=torch.int32,
+                          device=device),
+    }
+
+
+def decode_attention(params, x, cache, t, spec: CacheSpec, rope="1d",
+                     positions=None):
+    """One-token decode. x: (B,1,d); t: () or (B,) absolute position(s).
+
+    Writes the new K/V at slot ``t % capacity`` (cast to the cache's
+    type), then attends in float32 over every valid slot: written
+    (``pos >= 0``), not after ``t`` and, for sliding windows, after
+    ``t - window``.  Returns (y (B,1,d), new cache); the old cache is not
+    written to."""
+    if spec.quant:
+        raise _unported("the int8 KV cache", "A7(d)")
+    b = x.shape[0]
+    per_row = t.dim() == 1
+    t_b = t if per_row else t.expand(b)
+    q, k_new, v_new = _project_qkv(params, x)
+    if positions is None:
+        positions = t_b[:, None]
+    q, k_new = apply_rope(q, k_new, rope, positions)
+    slot = torch.remainder(t_b, spec.capacity).long()
+    rows = torch.arange(b, device=x.device)
+    k = cache["k"].index_put((rows, slot), k_new[:, 0].to(cache["k"].dtype))
+    v = cache["v"].index_put((rows, slot), v_new[:, 0].to(cache["v"].dtype))
+    if per_row:
+        pos = cache["pos"].index_put((rows, slot), t_b.to(torch.int32))
+        tt = t_b[:, None]                                   # (B,1)
+    else:
+        pos = cache["pos"].index_put((slot[:1],), t.reshape(1).to(
+            torch.int32))
+        tt = t
+    valid = (pos >= 0) & (pos <= tt)
+    if spec.window is not None:
+        valid &= pos > tt - spec.window
+    valid = valid.reshape(-1 if per_row else 1, 1, 1, pos.shape[-1])
+
+    kh = k.shape[2]
+    g = q.shape[2] // kh
+    hd = q.shape[-1]
+    qh = q.reshape(b, kh, g, hd)
+    scale = 1.0 / torch.sqrt(torch.tensor(hd, dtype=torch.float32))
+    s_ = torch.einsum("bkgh,btkh->bkgt", qh.float(),
+                      k.float()) * scale.to(x.device)
+    s_ = torch.where(valid, s_, torch.tensor(NEG_INF, device=x.device))
+    p = torch.softmax(s_, dim=-1)
+    out = torch.einsum("bkgt,btkh->bkgh", p, v.float())
+    out = out.reshape(b, 1, kh * g, hd).to(x.dtype)
+    y = attention_block_output(params, out, x.dtype)
+    return y, {"k": k, "v": v, "pos": pos}

@@ -1,4 +1,4 @@
-"""Shared model building blocks: initializers and the RMS norm.
+"""Shared model building blocks: initializers, the RMS norm and RoPE.
 
 Models are plain trees of tensors (nested dicts and lists) and plain
 functions over them, as in the JAX package.  Initializers draw from an
@@ -7,9 +7,10 @@ from ``jax.random``'s, so the parity tests carry the JAX package's
 weights across (``convert.lm_params_from_numpy``).
 
 Not ported: the logical-axis rules and the mesh (``with_logical_constraint``
-and friends: ROADMAP A8), and the ``kernel_dispatch`` switch: the scan
+and friends: ROADMAP A8), the ``kernel_dispatch`` switch (each kernel's
 wrapper picks the CUDA kernel or the plain version by the device of its
-tensors, as every kernel of the port does.
+tensors), ``softmax_xent_logits`` (the training slice, A7(c)), and the
+2-D and M-RoPE variants (their families, A7(d)), which raise.
 """
 from __future__ import annotations
 
@@ -39,3 +40,53 @@ def rms_norm(x, scale, eps: float = 1e-6):
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)
     out = x * torch.rsqrt(var + eps) * (1.0 + scale.float())
     return out.to(dtype)
+
+
+def silu(x):
+    """x * sigmoid(x), as ``jax.nn.silu``."""
+    return x * torch.sigmoid(x)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+def _rope_freqs(head_dim: int, theta: float = 10000.0, device=None):
+    """1 / theta^(i/d2) for i < d2, in float32 as the JAX package computes
+    it: a float32 arange over d2, a float32 power.  At position 4096 one
+    ulp of a frequency moves the angle by about 2e-4 rad."""
+    d2 = head_dim // 2
+    expo = torch.arange(0, d2, dtype=torch.float32, device=device) / d2
+    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                        device=device), expo)
+
+
+def _apply_rotary(x, angles):
+    """x: (..., 2*d2) pairs-last layout; angles broadcastable (..., d2).
+    The rotation is float32 (x times a float32 cos), cast back to x's
+    type."""
+    d2 = angles.shape[-1]
+    x1, x2 = x[..., :d2], x[..., d2:2 * d2]
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    r1 = x1 * cos - x2 * sin
+    r2 = x2 * cos + x1 * sin
+    out = torch.cat([r1, r2], dim=-1)
+    if x.shape[-1] > 2 * d2:  # partial rotary
+        out = torch.cat([out, x[..., 2 * d2:].to(out.dtype)], dim=-1)
+    return out.to(x.dtype)
+
+
+def rope_1d(x, positions, theta: float = 10000.0):
+    """Standard RoPE. x: (B, S, H, hd); positions: (B, S) int."""
+    freqs = _rope_freqs(x.shape[-1], theta, x.device)
+    angles = positions[..., None].to(torch.float32) * freqs   # (B,S,d2)
+    return _apply_rotary(x, angles[:, :, None, :])
+
+
+def rope_2d_partial(*args, **kwargs):
+    raise NotImplementedError("2-D partial RoPE (chatglm) is not ported "
+                              "yet: ROADMAP A7(d), the dense family")
+
+
+def rope_mrope(*args, **kwargs):
+    raise NotImplementedError("M-RoPE (qwen2-vl) is not ported yet: "
+                              "ROADMAP A7(d), the VLM family")

@@ -6,16 +6,17 @@ kind of the repeated pattern, every leaf STACKED ``(unit_repeats,
 ...)``), so weights carry across leaf by leaf.  The JAX package scans
 the unit with remat; here the layers are a Python loop over the repeat
 index ``r`` (no scan, no remat: PyTorch runs eagerly).  The decode cache
-keeps the JAX layout ``{"prologue": [...], "unit": [{"conv", "ssm"}
-stacked], "t"}``.
+keeps the JAX layout ``{"prologue": [...], "unit": [per kind, every
+leaf stacked], "t"}`` (``{"conv", "ssm"}`` for mamba, ``{"conv", "h"}``
+for rec, ``{"k", "v", "pos"}`` for attn_local).
 
 ``init_lm`` builds a stacked leaf one layer at a time, each layer drawn
 in float32 and cast to ``dtype`` as it is written, so a 7B model
 initialises in the serve type without a float32 copy of the whole
 (falcon-mamba-7b's stacked ``in_proj`` is 17 GB in float32).
 
-Not ported yet: ``lm_loss`` (the training slice), the encoder and the
-modality prefix (ROADMAP A7).
+Not ported yet: ``lm_loss`` (the training slice, A7(c)), the encoder,
+the modality prefix and M-RoPE positions (A7(d)).
 """
 from __future__ import annotations
 
@@ -76,6 +77,16 @@ def _stack(trees):
 # ---------------------------------------------------------------------------
 # helpers
 # ---------------------------------------------------------------------------
+def _default_positions(cfg: ArchConfig, b, s, offset=0, device=None):
+    """(B,S) positions offset..offset+S-1 (M-RoPE's (3,B,S) waits for the
+    VLM family, A7(d))."""
+    if cfg.rope == "mrope":
+        raise NotImplementedError("M-RoPE positions are not ported yet: "
+                                  "ROADMAP A7(d), the VLM family")
+    pos = torch.arange(s, dtype=torch.int32, device=device)[None, :] + offset
+    return pos.expand(b, s)
+
+
 def _embed_tokens(params, tokens, dtype):
     emb = params["embed"].to(dtype)
     return emb[torch.clamp_min(tokens, 0).long()]
@@ -116,9 +127,14 @@ def _unit_loop(params_unit, x, cfg: ArchConfig, ctx, collect_cache=False,
 # ---------------------------------------------------------------------------
 def forward(params, cfg: ArchConfig, batch, dtype=torch.bfloat16):
     """Full forward -> (logits (B,S,V), aux_loss).  batch: {"tokens"
-    (B,S) int}."""
-    x = _embed_tokens(params, batch["tokens"], dtype)
-    ctx: dict = {}
+    (B,S) int}, optional "positions" (B,S) and "segments" (packed
+    sequences, which attention refuses until A7(e))."""
+    tokens = batch["tokens"]
+    x = _embed_tokens(params, tokens, dtype)
+    positions = batch.get("positions")
+    if positions is None:
+        positions = _default_positions(cfg, *tokens.shape, device=x.device)
+    ctx = {"positions": positions, "segments": batch.get("segments")}
     aux = 0.0
     for p, kind in zip(params["prologue"], cfg.pattern_prologue):
         x, a, _ = apply_block(p, x, kind, cfg, ctx)
@@ -138,7 +154,10 @@ def prefill(params, cfg: ArchConfig, batch, spec: CacheSpec,
     cache)."""
     tokens = batch["tokens"]
     x = _embed_tokens(params, tokens, dtype)
-    ctx = {"spec": spec}
+    positions = batch.get("positions")
+    if positions is None:
+        positions = _default_positions(cfg, *tokens.shape, device=x.device)
+    ctx = {"positions": positions, "spec": spec}
     caches = {"prologue": [], "unit": None}
     for p, kind in zip(params["prologue"], cfg.pattern_prologue):
         x, _, cache = prefill_block(p, x, kind, cfg, ctx)
@@ -158,8 +177,8 @@ def init_cache(cfg: ArchConfig, batch_size: int, spec: CacheSpec,
     output waits for that family)."""
     def stacked(kind):
         one = init_block_cache(cfg, kind, batch_size, spec, dtype, device)
-        return tree_map(
-            lambda l: l.new_zeros((cfg.unit_repeats,) + tuple(l.shape)), one)
+        return tree_map(lambda l: l[None].expand(
+            (cfg.unit_repeats,) + tuple(l.shape)).clone(), one)
 
     return {
         "prologue": [init_block_cache(cfg, kind, batch_size, spec, dtype,
@@ -172,10 +191,16 @@ def init_cache(cfg: ArchConfig, batch_size: int, spec: CacheSpec,
 
 def decode_step(params, cfg: ArchConfig, token, cache, spec: CacheSpec,
                 dtype=torch.bfloat16):
-    """One decode step. token: (B,1) int -> (logits (B,1,V), new cache)."""
+    """One decode step. token: (B,1) int -> (logits (B,1,V), new cache).
+
+    ``cache["t"]`` is the step, a scalar for the whole batch or one per
+    row, shape (B,) (the Engine's slots); each row takes its RoPE
+    position from its own step."""
+    b = token.shape[0]
     t = cache["t"]
     x = _embed_tokens(params, token, dtype)
-    ctx = {"t": t, "spec": spec}
+    positions = (t if t.dim() == 1 else t.expand(b))[:, None]
+    ctx = {"positions": positions, "t": t, "spec": spec}
     new_cache = {"prologue": [], "t": t + 1}
     for p, kind, c in zip(params["prologue"], cfg.pattern_prologue,
                           cache["prologue"]):

@@ -1,27 +1,22 @@
-"""Recurrent sequence mixers: the Mamba-1 selective SSM (falcon-mamba).
+"""Recurrent sequence mixers: the Mamba-1 selective SSM (falcon-mamba)
+and the RG-LRU (recurrentgemma).
 
 The selective scan always goes through ``kernels.mamba_scan.mamba_scan``:
 the CUDA kernel on the card, for a prompt and for a decode step alike
 (S = 1), and its plain version on the CPU.  The JAX package's chunked
 ``jnp`` scan and its ``kernel_dispatch`` switch have no counterpart.
 
-The RG-LRU (RecurrentGemma / Griffin) block is not ported yet: ROADMAP
-A7 (recurrentgemma serve) and B6 (its scan kernel).
+The RG-LRU (RecurrentGemma / Griffin) block runs its linear recurrence
+through ``kernels.rglru_scan.rglru_scan`` the same way, on every path.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ..kernels.mamba_scan import mamba_scan
-from .common import dense_init
-
-RGLRU_TODO = ("the RG-LRU block (recurrentgemma) is not ported yet: "
-              "ROADMAP A7 (recurrentgemma serve) and B6 (rglru_scan)")
-
-
-def silu(x):
-    """x * sigmoid(x), as ``jax.nn.silu``."""
-    return x * torch.sigmoid(x)
+from ..kernels.rglru_scan import rglru_scan
+from .common import dense_init, silu
 
 
 def softplus(x):
@@ -130,15 +125,89 @@ def init_mamba_state(batch, d_inner, d_state, conv_width,
 
 
 # ---------------------------------------------------------------------------
-# RG-LRU (RecurrentGemma / Griffin): not ported yet
+# RG-LRU (RecurrentGemma / Griffin) recurrent block
 # ---------------------------------------------------------------------------
-def init_rglru(*args, **kwargs):
-    raise NotImplementedError(RGLRU_TODO)
+def init_rglru(gen, d_model, d_inner, num_heads, conv_width=4,
+               device="cuda", dtype=torch.float32):
+    """Griffin recurrent block: x-branch (conv1d -> RG-LRU), gate branch
+    (GeLU), merged and projected out.  The recurrence and input gates are
+    block-diagonal with ``num_heads`` blocks.  The JAX package's leaves,
+    shapes and initial distributions, drawn in float32 and cast to
+    ``dtype``."""
+    bd = d_inner // num_heads
+
+    def dense(shape, in_axes=(0,)):
+        return dense_init(gen, shape, in_axes, dtype, device)
+
+    def zeros(shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    lin = torch.linspace(2.0, 6.0, d_inner, dtype=torch.float32,
+                         device=device)
+    return {
+        "in_x": dense((d_model, d_inner)),
+        "in_gate": dense((d_model, d_inner)),
+        "conv_w": dense((conv_width, d_inner)),
+        "conv_b": zeros((d_inner,)),
+        "w_a": dense((num_heads, bd, bd), in_axes=(1,)),
+        "b_a": zeros((num_heads, bd)),
+        "w_i": dense((num_heads, bd, bd), in_axes=(1,)),
+        "b_i": zeros((num_heads, bd)),
+        # a = sigmoid(lam)^(c*r); sigmoid(lam) from about 0.86 to 0.998
+        "lam": torch.log(torch.exp(lin) - 1.0).to(dtype),
+        "out": dense((d_inner, d_model)),
+    }
 
 
-def apply_rglru(*args, **kwargs):
-    raise NotImplementedError(RGLRU_TODO)
+def apply_rglru(params, x, state=None, c_const=8.0):
+    """x: (B,S,d_model); state: dict(conv, h) or None -> (y, new_state).
+
+    The gate is ``jax.nn.gelu``'s default, the tanh approximation.  The
+    scan takes float32 a, beta*i*x and h, as the JAX package's kernel path
+    does, and always goes through ``kernels.rglru_scan.rglru_scan`` (the
+    CUDA kernel on the card, for a prompt and for a decode step alike);
+    the states come back float32 and are cast to x's type for the output.
+    """
+    dt_ = x.dtype
+    bsz, s, _ = x.shape
+    d_inner = params["in_x"].shape[1]
+    nh, bd, _ = params["w_a"].shape
+
+    gate = F.gelu(x @ params["in_gate"].to(dt_), approximate="tanh")
+    xin = x @ params["in_x"].to(dt_)
+    conv_state = None if state is None else state["conv"]
+    xc, conv_state = causal_conv1d(xin, params["conv_w"], params["conv_b"],
+                                   conv_state)
+
+    xh = xc.reshape(bsz, s, nh, bd)
+    r = torch.sigmoid(torch.einsum("bshd,hde->bshe", xh,
+                                   params["w_a"].to(dt_))
+                      + params["b_a"].to(dt_)).float()
+    i = torch.sigmoid(torch.einsum("bshd,hde->bshe", xh,
+                                   params["w_i"].to(dt_))
+                      + params["b_i"].to(dt_)).float()
+    r = r.reshape(bsz, s, d_inner)
+    i = i.reshape(bsz, s, d_inner)
+    log_a_base = F.logsigmoid(params["lam"])                  # (Di,) < 0
+    log_a = c_const * r * log_a_base                          # (B,S,Di) f32
+    a = torch.exp(log_a)
+    beta = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12))
+    gx = beta * i * xc.float()
+
+    h0 = (torch.zeros((bsz, d_inner), dtype=torch.float32, device=x.device)
+          if state is None else state["h"])
+    h_all, h_last = rglru_scan(a.contiguous(), gx.contiguous(),
+                               h0.contiguous())
+    y = h_all.to(dt_) * gate
+    out = y @ params["out"].to(dt_)
+    return out, {"conv": conv_state, "h": h_last}
 
 
-def init_rglru_state(*args, **kwargs):
-    raise NotImplementedError(RGLRU_TODO)
+def init_rglru_state(batch, d_inner, conv_width, dtype=torch.bfloat16,
+                     device="cuda"):
+    return {
+        "conv": torch.zeros((batch, conv_width - 1, d_inner), dtype=dtype,
+                            device=device),
+        "h": torch.zeros((batch, d_inner), dtype=torch.float32,
+                         device=device),
+    }

@@ -15,10 +15,16 @@ package's:
   * a request retires after ``max_new`` tokens or at ``eos``.
 
 The JAX engine ``vmap``s a single-sequence decode over a slot axis in
-front of every cache leaf.  Here the cache's own batch axis IS the slot
-axis and one batched ``decode_step`` runs the ``(slots, 1)`` tokens; the
-step counter ``t`` becomes one per slot, ``(slots,)``.  A prefilled
-request's cache is written into its slot in place.
+front of every cache leaf, so every slot has its own step ``t`` and, for
+attention, its own ring-buffer ``pos`` (capacity,).  Here the cache's own
+batch axis IS the slot axis and one batched ``decode_step`` runs the
+``(slots, 1)`` tokens: the step counter becomes one per slot, ``t``
+(slots,), and each attention cache's ``pos`` one row per slot, (slots,
+capacity) (stacked: (repeats, slots, capacity)); ``decode_attention``
+then writes, masks and rotates each row at its own step.  A prefilled
+request's cache is written into its slot in place: the leaves that
+carry the batch take their one row, ``pos`` (which has no batch axis in
+a one-sequence cache) its whole row.
 """
 from __future__ import annotations
 
@@ -52,16 +58,31 @@ def _bucket(n: int, buckets) -> int:
     return buckets[-1]
 
 
+def _per_slot(cache, slots: int):
+    """Give every attention cache's ``pos`` one row per slot."""
+    for c in cache["prologue"]:
+        if "pos" in c:
+            c["pos"] = c["pos"][None].expand(slots, -1).clone()
+    for c in cache["unit"]:
+        if "pos" in c:
+            c["pos"] = c["pos"][:, None].expand(-1, slots, -1).clone()
+    cache["t"] = cache["t"].expand(slots).clone()
+    return cache
+
+
 def _install(full, new, s: int) -> None:
     """Write a one-sequence cache ``new`` into slot ``s`` of ``full``: the
     prologue leaves carry the batch first, the stacked unit leaves after
-    the repeat axis."""
+    the repeat axis.  A leaf with one axis fewer than its slotted
+    counterpart (``pos``) is the slot's whole row."""
     for fp, np_ in zip(full["prologue"], new["prologue"]):
         for k in fp:
-            fp[k][s] = np_[k][0]
+            one = np_[k]
+            fp[k][s] = one[0] if one.dim() == fp[k].dim() else one
     for fu, nu in zip(full["unit"], new["unit"]):
         for k in fu:
-            fu[k][:, s] = nu[k][:, 0]
+            one = nu[k]
+            fu[k][:, s] = one[:, 0] if one.dim() == fu[k].dim() else one
     full["t"][s] = new["t"]
 
 
@@ -83,9 +104,8 @@ class Engine:
         self.done: list[Request] = []
 
         self.device = params["embed"].device
-        self.cache = model.init_cache(slots, self.spec, device=self.device)
-        self.cache["t"] = torch.zeros((slots,), dtype=torch.int32,
-                                      device=self.device)
+        self.cache = _per_slot(
+            model.init_cache(slots, self.spec, device=self.device), slots)
         self.tokens = torch.zeros((slots, 1), dtype=torch.int32,
                                   device=self.device)
         self.active_mask = np.zeros(slots, bool)

@@ -11,8 +11,11 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.mamba_scan import (launches, mamba_scan,
-                                            mamba_scan_ref, reset_launches)
+from repro_torch.kernels import launches, reset_launches
+from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_ref
+from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_ref
+from repro_torch.kernels.swa_attention import (swa_attention,
+                                               swa_attention_ref)
 
 pytestmark = pytest.mark.gpu
 
@@ -45,7 +48,7 @@ def test_mamba_scan_kernel_matches_plain_version(cuda, b, s, d, n):
     arrs = _scan_inputs(b, s, d, n, s + d, cuda)
     reset_launches()
     y, last = mamba_scan(*arrs)
-    assert launches() == {"mamba_scan": 1}
+    assert launches(["mamba_scan"]) == {"mamba_scan": 1}
     ry, rlast = mamba_scan_ref(*arrs)
     torch.testing.assert_close(y, ry, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(last, rlast, rtol=1e-6, atol=1e-6)
@@ -61,3 +64,109 @@ def test_mamba_scan_kernel_refuses_what_it_does_not_take(cuda):
     x4, dl4, bm4, cm4, a4, h04 = _scan_inputs(1, 4, 64, 4, 0, cuda)
     with pytest.raises(ValueError, match="N in"):
         mamba_scan(x4, dl4, bm4, cm4, a4, h04)
+
+
+# ---------------------------------------------------------------------------
+# rglru_scan
+# ---------------------------------------------------------------------------
+def _rglru_inputs(b, s, d, seed, device):
+    rng = np.random.default_rng(seed)
+    a = 1.0 / (1.0 + np.exp(-rng.standard_normal((b, s, d))))
+    arrs = (a, rng.standard_normal((b, s, d)), rng.standard_normal((b, d)))
+    return [torch.from_numpy(x.astype(np.float32)).to(device)
+            for x in arrs]
+
+
+@pytest.mark.parametrize("b,s,d", [(1, 8, 128), (2, 64, 128), (2, 32, 256),
+                                   (4, 1, 4096), (2, 77, 1000),
+                                   (1, 130, 33)])
+def test_rglru_scan_kernel_equals_plain_version_bit_for_bit(cuda, b, s, d):
+    """The product and the sum round separately on both sides
+    (-fmad=false): every state is bit-equal; one launch per call."""
+    a, x, h0 = _rglru_inputs(b, s, d, s + d, cuda)
+    reset_launches()
+    out, last = rglru_scan(a, x, h0)
+    assert launches(["rglru_scan"]) == {"rglru_scan": 1}
+    rout, rlast = rglru_scan_ref(a, x, h0)
+    assert torch.equal(out, rout) and torch.equal(last, rlast)
+
+
+def test_rglru_scan_kernel_chains_bit_for_bit(cuda):
+    a, x, h0 = _rglru_inputs(2, 100, 300, 5, cuda)
+    out, last = rglru_scan(a, x, h0)
+    o1, mid = rglru_scan(a[:, :37].contiguous(), x[:, :37].contiguous(), h0)
+    o2, last2 = rglru_scan(a[:, 37:].contiguous(), x[:, 37:].contiguous(),
+                           mid)
+    assert torch.equal(torch.cat([o1, o2], 1), out)
+    assert torch.equal(last2, last)
+
+
+def test_rglru_scan_kernel_refuses_what_it_does_not_take(cuda):
+    a, x, h0 = _rglru_inputs(1, 4, 64, 0, cuda)
+    with pytest.raises(TypeError):
+        rglru_scan(a.bfloat16(), x, h0)
+    with pytest.raises(TypeError):
+        rglru_scan(a, x.cpu(), h0)
+    with pytest.raises(ValueError, match="contiguous"):
+        rglru_scan(a, x.transpose(1, 2).contiguous().transpose(1, 2), h0)
+    with pytest.raises(ValueError, match="shape"):
+        rglru_scan(a, x, h0[:, :32])
+
+
+# ---------------------------------------------------------------------------
+# swa_attention
+# ---------------------------------------------------------------------------
+def _swa_inputs(b, s, h, kh, hd, dtype, seed, device):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            .to(device=device, dtype=dtype)
+            for shape in ((b, s, h, hd), (b, s, kh, hd), (b, s, kh, hd))]
+
+
+def _expanded_ref(q, k, v, window):
+    """The plain version on the card, K/V repeated over each group."""
+    g = q.shape[2] // k.shape[2]
+    return swa_attention_ref(q, k.repeat_interleave(g, 2),
+                             v.repeat_interleave(g, 2), window)
+
+
+SWA_CASES = [(1, 256, 2, 2, 64, 64), (1, 256, 2, 2, 64, 128),
+             (2, 128, 4, 2, 32, 32), (2, 100, 16, 1, 256, 2048),
+             (1, 300, 4, 1, 256, 40), (1, 77, 3, 3, 80, 1)]
+
+
+@pytest.mark.parametrize("b,s,h,kh,hd,window", SWA_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_swa_attention_kernel_matches_plain_version(cuda, b, s, h, kh, hd,
+                                                    window, dtype):
+    """The JAX package's kernel tolerances (tests/test_kernels.py): 2e-5
+    at float32 (sums in another order), 3e-2 at bfloat16 (one rounding
+    of the output either side of a bfloat16 step); one launch per call,
+    K/V not repeated."""
+    q, k, v = _swa_inputs(b, s, h, kh, hd, dtype, s + hd, cuda)
+    reset_launches()
+    out = swa_attention(q, k, v, window)
+    assert launches(["swa_attention"]) == {"swa_attention": 1}
+    assert out.dtype == dtype and out.shape == q.shape
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(out.float(), _expanded_ref(
+        q, k, v, window).float(), rtol=tol, atol=tol)
+
+
+def test_swa_attention_kernel_refuses_what_it_does_not_take(cuda):
+    q, k, v = _swa_inputs(1, 16, 4, 2, 32, torch.float32, 0, cuda)
+    with pytest.raises(TypeError):
+        swa_attention(q.double(), k.double(), v.double(), 8)
+    with pytest.raises(TypeError):
+        swa_attention(q, k.bfloat16(), v, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        swa_attention(q, k.transpose(1, 2).contiguous().transpose(1, 2), v,
+                      8)
+    with pytest.raises(ValueError, match="divide"):
+        swa_attention(q, *_swa_inputs(1, 16, 4, 3, 32, torch.float32, 0,
+                                      cuda)[1:], 8)
+    with pytest.raises(ValueError, match="window"):
+        swa_attention(q, k, v, 0)
+    big = _swa_inputs(1, 4, 1, 1, 320, torch.float32, 0, cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        swa_attention(*big, 2)

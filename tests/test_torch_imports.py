@@ -60,6 +60,18 @@ NEW_IN_SLICE_4 = (
     "repro_torch.serve.scheduler")
 
 
+# recurrentgemma serving: the RG-LRU scan and sliding-window attention
+# kernels, the MLP, RoPE and attention beside the blocks that use them
+NEW_IN_SLICE_5 = (
+    "repro_torch.kernels.rglru_scan", "repro_torch.kernels.rglru_scan.ref",
+    "repro_torch.kernels.rglru_scan.kernel",
+    "repro_torch.kernels.rglru_scan.ops",
+    "repro_torch.kernels.swa_attention",
+    "repro_torch.kernels.swa_attention.ref",
+    "repro_torch.kernels.swa_attention.kernel",
+    "repro_torch.kernels.swa_attention.ops", "repro_torch.models.mlp")
+
+
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
     return top.startswith("jax") or top == "repro"
@@ -68,7 +80,7 @@ def _forbidden(name: str) -> bool:
 def test_port_modules_import_no_jax_and_no_repro():
     mods = _port_modules()
     assert "repro_torch.kernels.flat_update.ops" in mods
-    for name in NEW_IN_SLICE_2 + NEW_IN_SLICE_4:
+    for name in NEW_IN_SLICE_2 + NEW_IN_SLICE_4 + NEW_IN_SLICE_5:
         assert name in mods, name
     code = (
         "import importlib, json, sys\n"
@@ -124,7 +136,9 @@ def test_every_cuda_source_is_a_library_of_the_loader():
     every CUDA source of the port: each ``csrc/*.cu`` is one Library."""
     code = (
         "import json, repro_torch.kernels.dana_update, "
-        "repro_torch.kernels.flat_update, repro_torch.kernels.mamba_scan\n"
+        "repro_torch.kernels.flat_update, repro_torch.kernels.mamba_scan, "
+        "repro_torch.kernels.rglru_scan, "
+        "repro_torch.kernels.swa_attention\n"
         "from repro_torch.kernels import _build\n"
         "print(json.dumps({l.name: str(l.source) for l in "
         "_build.LIBRARIES}))\n")
@@ -135,3 +149,4 @@ def test_every_cuda_source_is_a_library_of_the_loader():
     libs = json.loads(out.stdout.strip().splitlines()[-1])
     assert sorted(map(Path, libs.values())) == sorted(PORT.rglob("*.cu"))
     assert "gap_update" in libs and "mamba_scan" in libs
+    assert "rglru_scan" in libs and "swa_attention" in libs

@@ -13,6 +13,15 @@
   loop over its prompt left-padded with token 0 into its bucket (the
   pad tokens enter the state, as in the JAX engine).
 * The CLI with ``--reduced --device cpu``.
+* recurrentgemma-9b reduced with two unit repeats (8 layers, window 64,
+  vocabulary 128), at float32 on the JAX package's weights: ``generate``
+  over prompts longer than the window (the prefill's ring buffer rolls,
+  decode writes past it) equals the JAX greedy loop token for token,
+  logits to 1e-4; the Engine serves three requests through two slots,
+  each slot at its own step and ring position (one slot wraps its
+  capacity of 48), and every request's tokens equal both the JAX greedy
+  loop and the port's lone prefill + decode over its left-padded
+  bucket; the CLI with ``--arch recurrentgemma-9b --reduced``.
 """
 import dataclasses
 
@@ -28,7 +37,7 @@ from repro.models.attention import CacheSpec as JSpec
 
 from repro_torch.configs import get_config
 from repro_torch.convert import lm_params_from_numpy
-from repro_torch.kernels.mamba_scan import launches, reset_launches
+from repro_torch.kernels import launches, reset_launches
 from repro_torch.launch import serve
 from repro_torch.models.api import build_model
 from repro_torch.models.attention import CacheSpec
@@ -99,7 +108,7 @@ def test_generate_matches_jax_greedy_loop_f32(setup):
     gen = 6
     reset_launches()
     toks, stats = serve.generate(model, p, torch.from_numpy(prompts), gen)
-    assert launches() == {"mamba_scan": 0}          # CPU: the plain scan
+    assert launches(["mamba_scan"]) == {"mamba_scan": 0}   # CPU: plain
     jtoks, jlogits = _jax_greedy(jcfg, jp, prompts, gen, 32 + gen)
     assert toks.dtype == torch.int32 and toks.shape == (3, gen)
     np.testing.assert_array_equal(toks.numpy(), jtoks)
@@ -202,4 +211,83 @@ def test_cli_reduced_on_cpu(capsys):
     out = capsys.readouterr().out
     assert "arch=falcon-mamba-7b-reduced" in out
     assert "prefill_tok_per_s" in out and "first sequences:" in out
+    assert stats["prefill_tok_per_s"] > 0 and stats["decode_tok_per_s"] > 0
+
+
+# ---------------------------------------------------------------------------
+# recurrentgemma
+# ---------------------------------------------------------------------------
+RG_KERNELS = ["rglru_scan", "swa_attention"]
+
+
+@pytest.fixture(scope="module")
+def rg_setup():
+    def two(c):
+        return dataclasses.replace(c.reduced(), unit_repeats=2,
+                                   num_layers=8, vocab_size=VOCAB)
+    jcfg, cfg = two(jget("recurrentgemma-9b")), two(
+        get_config("recurrentgemma-9b"))
+    jp = jax.jit(lambda k: jlm.init_lm(k, jcfg))(jax.random.PRNGKey(1))
+    p = lm_params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    return jcfg, jp, build_model(cfg, torch.float32), p
+
+
+def test_generate_rg_matches_jax_greedy_loop_f32(rg_setup):
+    jcfg, jp, model, p = rg_setup
+    rng = np.random.default_rng(5)
+    prompts = rng.integers(0, VOCAB, size=(2, 80)).astype(np.int32)
+    gen = 5
+    reset_launches(RG_KERNELS)
+    toks, _ = serve.generate(model, p, torch.from_numpy(prompts), gen)
+    assert launches(RG_KERNELS) == {"rglru_scan": 0, "swa_attention": 0}
+    jtoks, jlogits = _jax_greedy(jcfg, jp, prompts, gen, 80 + gen)
+    np.testing.assert_array_equal(toks.numpy(), jtoks)
+    spec = CacheSpec(80 + gen, None)
+    logits, cache = model.prefill(p, {"tokens": torch.from_numpy(prompts)},
+                                  spec)
+    assert cache["unit"][2]["k"].shape[2] == 64      # min(capacity, window)
+    steps = [logits[:, -1]]
+    for j in range(gen - 1):
+        logits, cache = model.decode_step(p, toks[:, j:j + 1], cache, spec)
+        steps.append(logits[:, -1])
+    np.testing.assert_allclose(torch.stack(steps, 1).numpy(), jlogits,
+                               **F32_TOL)
+
+
+def test_engine_rg_per_slot_positions_match_lone_path(rg_setup):
+    """Prompts of 5, 30 and 12 tokens (buckets 16, 32, 16) through two
+    slots of capacity 48: the second request decodes 30 tokens, so its
+    slot's step runs to 62 and its ring buffer wraps while the other
+    slot serves the first and then the third request at other steps."""
+    jcfg, jp, model, p = rg_setup
+    rng = np.random.default_rng(6)
+    lens, news = (5, 30, 12), (4, 30, 6)
+    prompts = [rng.integers(1, VOCAB, size=n).astype(np.int32) for n in lens]
+    eng = Engine(model, p, slots=2, capacity=48, prefill_buckets=(16, 32))
+    assert eng.cache["t"].shape == (2,)
+    assert eng.cache["unit"][2]["pos"].shape == (2, 2, 48)
+    for i, (pr, n) in enumerate(zip(prompts, news)):
+        eng.submit(Request(rid=i, prompt=pr, max_new=n))
+    slot_of = {}
+    while eng.queue or eng.active_mask.any():
+        eng.step()
+        slot_of.update({r.rid: s for s, r in enumerate(eng.active) if r})
+    done = {r.rid: r.output for r in eng.done}
+    assert sorted(done) == [0, 1, 2]
+    assert slot_of[0] == slot_of[2] != slot_of[1]     # slot 0 reused
+    for i, (pr, n) in enumerate(zip(prompts, news)):
+        bucket = 16 if len(pr) <= 16 else 32
+        padded = np.zeros((bucket,), np.int32)
+        padded[-len(pr):] = pr
+        jtoks, _ = _jax_greedy(jcfg, jp, padded[None], n, 48)
+        assert done[i] == jtoks[0].tolist()
+        assert done[i] == _static_generate(model, p, padded, n, capacity=48)
+
+
+def test_cli_recurrentgemma_reduced_on_cpu(capsys):
+    stats = serve.main(["--arch", "recurrentgemma-9b", "--reduced",
+                        "--device", "cpu", "--batch", "2",
+                        "--prompt-len", "70", "--gen", "3"])
+    out = capsys.readouterr().out
+    assert "arch=recurrentgemma-9b-reduced" in out
     assert stats["prefill_tok_per_s"] > 0 and stats["decode_tok_per_s"] > 0
