@@ -14,7 +14,9 @@ master update), and the other flat-eligible members through
 (``launch.serve.generate`` and the continuous-batching ``serve.Engine``)
 through the Mamba-1 selective scan ``mamba_scan``; and recurrentgemma-9b's
 serve path (the same entry points) through the RG-LRU scan
-``rglru_scan`` and causal sliding-window attention ``swa_attention``.
+``rglru_scan`` and causal sliding-window attention ``swa_attention``;
+and the reduced models' gradients through the scan and attention
+kernels.
 Full width: the MLP
 classifier [2048, 4096, 4096, 10] has 25,214,986 parameters, the size
 of the paper's ImageNet ResNet-50 master state, and 64 workers (the
@@ -49,11 +51,20 @@ Phases (one JSON line each):
               and split in two calls chained through the last state;
               rglru_scan bit for bit at recurrentgemma-9b's prefill shape
               (B=4, S=512, D=4096), at S=1, at S=77 with D=1000 and a
-              nonzero h0, and chained; swa_attention (bf16 timed, f32
+              nonzero h0, and chained; swa_attention (bf16, the
+              tensor-core kernel, timed, with its device time from
+              torch.profiler and its TFLOP/s; f32, the CUDA-core kernel,
               checked; 2e-5 f32, 3e-2 bf16) at (B=4, S=512, H=16, K=1,
               hd=256, window 2048) and (1, 3072, ...), where the band is
               narrower than the sequence, and at S=1000, window 128, hd
               64, K=H; beside it SDPA with the band as a boolean mask
+  lm_grad     falcon-mamba-7b-reduced and recurrentgemma-9b-reduced in
+              float32: sum(logits * W) backward on the card (the kernels
+              forward, their plain versions' gradients backward) and on
+              the CPU (plain versions throughout), parameters from one
+              seeded draw, tokens and W from numpy; every leaf's gradient
+              finite and within 1e-4 relative L2 of the CPU's, every
+              kernel of the model launched once per layer
   main_path   run_simulation with the kernels, then the same run on the
               tree path without kernels: identical event stream, final
               parameters within 1e-3 relative L2, every loss finite
@@ -227,6 +238,26 @@ def time_ms(fn, reps=REPS):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def device_ms(fn, name, reps=REPS):
+    """Device time (ms) per launch of the kernels whose names contain
+    ``name``, from torch.profiler's CUDA activity over ``reps`` calls
+    (after a warm-up call): the wrapper's host work left out."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [(a.self_device_time_total, a.count)
+            for a in prof.key_averages()
+            if a.device_type == torch.autograd.DeviceType.CUDA
+            and name in a.key and a.self_device_time_total > 0]
+    if not hits:
+        raise AssertionError(f"the profiler saw no device time of {name}")
+    return sum(t for t, _ in hits) / 1e3 / sum(c for _, c in hits)
 
 
 def max_err(a, b, tol, what, scale=None):
@@ -1101,15 +1132,14 @@ def check_swa(card, label, b, s, h, kh, hd, window, dtype, seed,
     the plain path repeats them) with the JAX package's tolerance; timed:
     beside it the plain version and SDPA with the band as a boolean
     mask."""
-    from repro_torch.kernels.swa_attention import swa_attention_ref
+    from repro_torch.kernels.swa_attention import swa_attention_gqa
     from repro_torch.kernels.swa_attention.kernel import swa_attention_cuda
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v = (torch.randn(shape, device="cuda", generator=g).to(dtype)
                for shape in ((b, s, h, hd), (b, s, kh, hd), (b, s, kh, hd)))
 
     def plain():
-        return swa_attention_ref(q, k.repeat_interleave(h // kh, 2),
-                                 v.repeat_interleave(h // kh, 2), window)
+        return swa_attention_gqa(q, k, v, window)
 
     out = swa_attention_cuda(q, k, v, window)
     ref = plain()
@@ -1147,7 +1177,12 @@ def check_swa(card, label, b, s, h, kh, hd, window, dtype, seed,
         rec.update(bytes=nbytes, flops=nops, bound_bytes_ms=tb,
                    bound_ops_ms=to, ops_rate=rate,
                    bound_ms=max(tb, to),
-                   bound_by="bytes" if tb >= to else "operations")
+                   bound_by="bytes" if tb >= to else "operations",
+                   device_ms=device_ms(
+                       lambda: swa_attention_cuda(q, k, v, window),
+                       "swa_attention"),
+                   tflops=nops / rec["ms"] / 1e9)
+        rec["device_tflops"] = nops / rec["device_ms"] / 1e9
     emit(rec)
     return rec
 
@@ -1170,6 +1205,83 @@ def phase_swa_attention(card):
         check_swa(card, "odd S=1000 w=128 hd=64 K=H", 2, 1000, 4, 4, 64, 128,
                   dtype, 63)
     return recs
+
+
+# -- lm_grad: gradients through the kernels ----------------------------------
+# the reduced models' gradients on the card (kernel forwards, the plain
+# versions' gradients backward) against the CPU's (plain versions
+# throughout), leaf by leaf: relative L2 within 1e-4 (cuBLAS sums the
+# products in another order than the CPU)
+LM_GRAD = {"falcon-mamba-7b-reduced": (2, 64),      # (batch, tokens)
+           "recurrentgemma-9b-reduced": (2, 160)}   # past its window 64
+LM_GRAD_TOL = 1e-4
+
+
+def lm_grads(model, params0, tokens, w, device):
+    """Leaf gradients of sum(logits * W) on ``device``."""
+    from repro_torch.core.types import tree_leaves, tree_map
+    params = tree_map(lambda l: l.detach().to(device).requires_grad_(True),
+                      params0)
+    logits, _ = model.forward(params, {"tokens": tokens.to(device)})
+    (logits * w.to(device)).sum().backward()
+    return [l.grad for l in tree_leaves(params)], logits.detach()
+
+
+def phase_lm_grad():
+    """Each reduced model in float32: parameters drawn once on the CPU
+    from a seeded generator, tokens and W from numpy; the card's forward
+    and backward with the launch counts set to 0 just before, then the
+    CPU's.  Every leaf's gradient must be finite and within LM_GRAD_TOL
+    (relative L2) of the CPU's; every kernel of the model launched."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.types import tree_leaves
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.models.api import build_model
+    for arch, (batch, seq) in LM_GRAD.items():
+        cfg = get_config(arch)
+        model = build_model(cfg, torch.float32)
+        params0 = model.init(torch.Generator().manual_seed(0), device="cpu")
+        rng = np.random.default_rng(4)
+        tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                              size=(batch, seq)),
+                                 dtype=torch.int32)
+        w = torch.as_tensor(rng.standard_normal(
+            (batch, seq, cfg.vocab_size)).astype(np.float32))
+        reset_launches()
+        t0 = time.perf_counter()
+        g_card, logits_card = lm_grads(model, params0, tokens, w, "cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = launches()
+        g_cpu, logits_cpu = lm_grads(model, params0, tokens, w, "cpu")
+        rel = []
+        for a, b in zip(g_card, g_cpu):
+            if a is None or b is None or not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"lm_grad {arch}: a leaf has no finite "
+                                     f"gradient on the card")
+            rel.append(float((a.cpu() - b).norm() / b.norm()))
+        logit_rel = float((logits_card.cpu() - logits_cpu).norm()
+                          / logits_cpu.norm())
+        kinds = list(cfg.pattern_prologue) + \
+            list(cfg.pattern_unit) * cfg.unit_repeats
+        expected = {"mamba_scan": kinds.count("mamba"),
+                    "rglru_scan": kinds.count("rec"),
+                    "swa_attention": kinds.count("attn_local")}
+        expected = {k: n for k, n in expected.items() if n}
+        rec = {"phase": "lm_grad", "arch": arch, "dtype": "float32",
+               "batch": batch, "tokens": seq, "leaves": len(rel),
+               "params": sum(l.numel() for l in tree_leaves(params0)),
+               "card_seconds": secs,
+               "launches": {k: n for k, n in counts.items() if n},
+               **{f"expected_{k}_launches": n for k, n in expected.items()},
+               "logits_rel_l2": logit_rel, "grad_rel_l2_max": max(rel),
+               "grad_rel_l2_median": float(np.median(rel)),
+               "tolerance_rel_l2": LM_GRAD_TOL}
+        emit(rec)
+        check_counts(f"lm_grad {arch}", counts, expected)
+        if max(rel) > LM_GRAD_TOL:
+            raise AssertionError(f"lm_grad {arch}: a leaf's gradient is "
+                                 f"{max(rel)} (relative L2) from the CPU's")
 
 
 # -- recurrentgemma-9b serving -------------------------------------------------
@@ -1409,6 +1521,7 @@ def main():
     ms = phase_mamba_scan(card)
     rs = phase_rglru_scan(card)
     sw = phase_swa_attention(card)
+    phase_lm_grad()
     conf = configuration()
     main_rec, hist_e, final_e = phase_main_path(conf)
     paths = {"main_path": main_rec,
@@ -1486,9 +1599,10 @@ def main():
     for key in ("ms", "bound_ms", "plain_ms", "max_abs_err", "bound_by"):
         kernels[5][f"{key}_decode_S1"] = rs["decode"][key]
     for key in ("ms", "bound_ms", "plain_ms", "library_ms", "max_abs_err",
-                "bound_by"):
+                "bound_by", "device_ms", "tflops", "device_tflops"):
         kernels[6][f"{key}_long_S3072"] = sw["long"][key]
-    for key in ("bound_bytes_ms", "bound_ops_ms", "ops_rate", "dtype"):
+    for key in ("bound_bytes_ms", "bound_ops_ms", "ops_rate", "dtype",
+                "device_ms", "tflops", "device_tflops"):
         kernels[6][key] = sw["main"][key]
     emit({"kernels": kernels})
     print(card.smi, flush=True)

@@ -2,21 +2,23 @@
 """Profile the PyTorch port's serve path on one GPU: where the time goes.
 
     python3 scripts/torch_profile_serve.py [--arch recurrentgemma-9b]
+        [--batch 4] [--prompt 512] [--gen 32]
 
 Builds the model (falcon-mamba-7b by default) as ``chip_smoke.py``'s
 ``serve_generate`` and ``serve_generate_rg`` do (full width and depth,
 bf16, random weights from a seed), warms up with a short ``generate``
-call, then runs ``generate`` (batch 4, prompt 512, 32
-new tokens) once with the launch counts set to 0 and once under
-``torch.profiler`` (CUDA activity only: recording every host op would
-slow the host that sets the decode loop's pace), and the prefill alone
-under it too.  Prints one JSON line: wall seconds, prefill and decode
-tokens per second, the device's busy seconds (the summed device time of
-every kernel, copy and set on the one stream), their number, and the
-idle share for the whole call and for the prefill, the device time by
-name (top 15), and each of the model's hand-written kernels' device time
-per launch (``mamba_scan``; ``rglru_scan`` and ``swa_attention``).
-Exits 2 without a CUDA device.
+call, then runs ``generate`` (batch 4, prompt 512, 32 new tokens by
+default; ``--batch 1 --prompt 3072 --gen 16`` is
+``serve_generate_rg_long``'s shape) once with the launch counts set to 0
+and once under ``torch.profiler`` (CUDA activity only: recording every
+host op would slow the host that sets the decode loop's pace), and the
+prefill alone under it too.  Prints one JSON line: wall seconds,
+prefill and decode tokens per second, the device's busy seconds (the
+summed device time of every kernel, copy and set on the one stream),
+their number, and the idle share for the whole call and for the
+prefill, the device time by name (top 15), and each of the model's
+hand-written kernels' device time per launch (``mamba_scan``;
+``rglru_scan`` and ``swa_attention``).  Exits 2 without a CUDA device.
 """
 import argparse
 import json
@@ -46,6 +48,9 @@ KERNELS = {"falcon-mamba-7b": ("mamba_scan",),
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="falcon-mamba-7b", choices=KERNELS)
+    ap.add_argument("--batch", type=int, default=chip_smoke.SERVE_BATCH)
+    ap.add_argument("--prompt", type=int, default=chip_smoke.SERVE_PROMPT)
+    ap.add_argument("--gen", type=int, default=chip_smoke.SERVE_GEN)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_profile_serve: no CUDA device", file=sys.stderr)
@@ -57,20 +62,20 @@ def main(argv=None):
     from repro_torch.models.attention import CacheSpec
 
     model, params, info = chip_smoke.serve_model(args.arch)
-    prompts = chip_smoke.serve_prompts(model.cfg)
+    prompts = chip_smoke.serve_prompts(model.cfg, 0, args.batch, args.prompt)
     generate(model, params, prompts[:, :64], 2)             # warm-up
     reset_launches()
-    _, stats = generate(model, params, prompts, chip_smoke.SERVE_GEN)
+    _, stats = generate(model, params, prompts, args.gen)
     counts = launches()
     acts = [torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        generate(model, params, prompts, chip_smoke.SERVE_GEN)
+        generate(model, params, prompts, args.gen)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     dev = _device_times(prof)
     busy = sum(d[1] for d in dev) / 1e6
-    spec = CacheSpec(chip_smoke.SERVE_PROMPT + chip_smoke.SERVE_GEN, None)
+    spec = CacheSpec(args.prompt + args.gen, None)
     with torch.profiler.profile(activities=acts) as prof_p:
         t0 = time.perf_counter()
         model.prefill(params, {"tokens": prompts}, spec)
@@ -92,8 +97,8 @@ def main(argv=None):
 
     print(json.dumps({
         "phase": "profile_serve_generate", "arch": model.cfg.name,
-        "batch": chip_smoke.SERVE_BATCH, "prompt": chip_smoke.SERVE_PROMPT,
-        "gen": chip_smoke.SERVE_GEN, **info, **stats, "launches": counts,
+        "batch": args.batch, "prompt": args.prompt, "gen": args.gen,
+        **info, **stats, "launches": counts,
         "profiled_wall_s": wall, "device_busy_s": busy,
         "device_events": sum(c for _, _, c in dev),
         "prefill_device_events": sum(c for _, _, c in dev_p),

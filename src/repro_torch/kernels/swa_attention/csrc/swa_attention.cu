@@ -1,50 +1,106 @@
-// Hopper (sm_90a) kernel of causal sliding-window flash attention, bound
+// Hopper (sm_90a) kernels of causal sliding-window flash attention, bound
 // with ctypes.
 //
 // swa_attention replaces the TPU kernel
 //   src/repro/kernels/swa_attention/kernel.py::swa_attention_pallas
 // and computes ref.py::swa_attention_ref: for q (B, S, H, hd) and k, v
 // (B, S, K, hd) with K dividing H (GQA; query head h reads kv head
-// h / (H/K)), each query at position i attends to the keys j with
-// i - window < j <= i, softmax(q.k / sqrt(hd)) v, in float32, with the
-// output in the inputs' type (float32 or bfloat16).
+// h / (H/K), in place: K/V are never repeated), each query at position
+// i attends to the keys j with i - window < j <= i,
+// softmax(q.k / sqrt(hd)) v, with the output in the inputs' type.  The
+// TPU kernel ran a grid (B*H, S/128) over K/V already repeated to H
+// heads and visited the band's kv blocks with a fori_loop.  Here a block
+// owns a tile of queries of one (batch, head) and visits only the kv
+// tiles that meet its band [q0 - window + 1, q_last], so the work is
+// O(S * window), not O(S^2).  Any S >= 1 (the last tiles mask their rows
+// and keys past S), head_dim 1..256 (zero-padded in shared memory to the
+// template's HD), any window >= 1.  One entry point, two kernels, picked
+// by the inputs' type (both count as one launch of swa_attention):
 //
-// Design.  The TPU kernel ran a grid (B*H, S/128) over K/V already
-// repeated to H heads, held whole K/V rows in VMEM and visited the band's
-// kv blocks with a fori_loop.  Here one block of 128 threads owns a tile
-// of kBq = 32 queries of one (batch, head) and visits only the kv tiles of
-// kBk = 32 keys that meet its band [q0 - window + 1, q0 + 31], so the work
-// is O(S * window), not O(S^2).  The kv head is read in place: GQA needs
-// no repeated K/V.  The query tile (scaled by 1/sqrt(hd) as it is loaded,
-// as kernel.py scales it) and each K and V tile go through shared memory
-// as float32; rows are padded by one float so the score loop's reads
-// fall in distinct banks.  Per kv tile:
-//   scores  each thread computes a 2 x 4 micro-tile of the 32 x 32 score
-//           tile (rows rg, rg+16; columns cg + 8j), masks it (key after
-//           the query, outside the window or past S: -1e30) and stores
-//           it in shared memory;
-//   softmax each warp owns 8 query rows; a lane per key column, warp
-//           shuffles for the row max and sum; the running max m and sum
-//           l live in registers (every lane of the warp holds its rows');
-//   PV      each warp scales its rows' accumulators by exp(m_old - m_new)
-//           and adds P V: lane L owns dims L, L+32, ... of its 8 rows,
-//           so the V reads are conflict-free and the P reads broadcast.
-// The output is acc / max(l, 1e-30), as kernel.py writes it.  Any S >= 1
-// (the last tile masks its rows and keys past S), head_dim up to 256 (the
-// template's HD is the next of 32, 64, 128, 256; dims past hd are zero).
-// Tensor cores, TMA and wgmma are later work: this first kernel runs its
-// products on the CUDA cores.
+// bfloat16: the tensor-core kernel (swa_attention_tc_kernel), the
+// FlashAttention-2 forward on mma.sync.
+//   Tiles    a block of 4 warps owns kBq = 64 queries (16 rows a warp)
+//            and walks kv tiles of kBk = 64 keys.  HD is 64, 128 or 256
+//            (the next at or above hd).  Dynamic shared memory holds the
+//            Q tile, one K and one V tile: 24 KB at HD 64, 48 KB at 128,
+//            96 KB at 256, so two blocks share an SM even at HD 256
+//            (__launch_bounds__(128, 2): 255 registers a thread at most;
+//            ptxas gives 247, no spills) and one block's copies run under
+//            the other's products.  Rows of HD bf16 are cut into 16-byte
+//            chunks stored at chunk ^ (row % 8), so the 8 row addresses of
+//            every ldmatrix phase fall in distinct banks.
+//   Copies   cp.async.cg, 16 bytes a thread, zero-filled past S and past
+//            hd (src-size 0), interleaved as FlashAttention-2 does: V_t's
+//            copy runs under Q K_t^T and the softmax, K_{t+1}'s under
+//            P V_t; cp.async.wait_group 0 and a barrier precede each use
+//            (two barriers a tile).  A thread keeps one chunk column, so
+//            each copy's shared address is one of two swizzled offsets
+//            plus a constant.  Inputs whose hd is no multiple of 8 (or
+//            whose pointers are not 16-byte aligned) take a scalar copy
+//            loop in the same kernel.
+//   Products mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32.
+//            S = Q K^T: A from Q by ldmatrix.x4, B from K rows by
+//            ldmatrix.x4; O += P V: B from V by ldmatrix.x4.trans.  Each
+//            lane's ldmatrix addresses are four swizzled offsets per
+//            operand plus constants, computed once.  The scale
+//            log2(e)/sqrt(hd) multiplies the f32 scores after Q K^T (q is
+//            not rounded twice), and the softmax runs in base 2 (exp2f):
+//            exp(x / sqrt(hd)) = 2^(x log2(e) / sqrt(hd)).
+//   Softmax  in registers: each thread holds two rows' (g, g + 8) score
+//            fragments, a quad of 4 lanes a row, so the row max needs two
+//            shuffles; m and acc stay f32 and 2^(m_old - m_new) rescales
+//            them; l is summed from the f32 p (per thread, the quad's
+//            partial sums added once at the end).  P never goes to shared
+//            memory: the f32 score fragment of keys 16kk..16kk+15 is the
+//            A fragment of the PV product, rounded to bf16 (as
+//            FlashAttention and the JAX model's own flash_attention,
+//            models/attention.py:158, round it; the Pallas kernel keeps P
+//            in f32).  Only the tiles that cross the diagonal or the
+//            window's lower edge apply the mask (-1e30); interior tiles
+//            skip it.  Keys before a row's first valid key give p = 1 only
+//            while that row's m is still -1e30, and the first valid tile's
+//            2^(m_old - m_new) = 0 wipes them, as in the Pallas kernel.
+//   Output   acc / max(l, 1e-30), rounded to bf16, staged in the warp's
+//            own Q rows and written as 16-byte chunks.
+//   Grid     one dimension, dispatched in order, longest bands first:
+//            every (head, batch row) of the last query tile, then of the
+//            one before, and so on, so the short first tiles fill the
+//            grid's tail.
+//
+// float32: the CUDA-core kernel (swa_attention_kernel): tensor cores
+// cannot meet the float32 tolerance of 2e-5.  One block of 128 threads owns kBq = 32 queries and walks kv tiles
+// of kBk = 32 keys through shared memory in float32 (q scaled by
+// 1/sqrt(hd) as it is loaded); each thread computes a 2 x 4 micro-tile of
+// the scores (rows rg, rg+16; columns cg + 8j), masks it and stores it;
+// each warp runs the online softmax of 8 rows (a lane per key, warp
+// shuffles for max and sum) and adds P V with lane L owning dims L, L+32,
+// ... of its rows.  HD is the next of 32, 64, 128, 256.
 //
 // Bound.  FLOPs = 4 * B * H * hd * (number of (query, key) pairs in the
-// band): at recurrentgemma-9b's prefill (B=4, S=512, H=16, hd=256, window
-// 2048 >= S, so plain causal: 131,328 pairs per head) 8.6 GFLOP, 0.0087
-// ms at the dense bf16 tensor-core rate of 989 TFLOP/s; bytes (q, k, v
-// read once, o written once; MQA, K = 1) 18.9 MB in bf16, 0.0056 ms at
-// 3.35 TB/s.  At B=1, S=3072, window 2048 (4.2M pairs per head): 68.7
-// GFLOP, 0.069 ms.  Operations bound it; on the CUDA cores (67 TFLOP/s
-// of float32) the floor is 15x higher, and shared-memory traffic
-// (about two loads per multiply-add in the score loop) is this kernel's
-// real limit.
+// band); bytes = q, k, v read once and o written once.  At
+// recurrentgemma-9b's prefill (B=4, S=512, H=16, K=1, hd=256, window 2048
+// >= S, so plain causal: 131,328 pairs per head) 8.6 GFLOP, 0.0087 ms at
+// the dense bf16 tensor-core rate of 989 TFLOP/s, and 35.7 MB in bf16
+// (q and o 16.8 MB each, k and v 1.0 MB each), 0.0106 ms at 3.35 TB/s:
+// bytes bound this shape.  At B=1, S=3072, window 2048 (4.2M pairs per
+// head) 68.7 GFLOP, 0.0695 ms, against 53.5 MB, 0.016 ms: operations
+// bound it.  What the design does about it: q is read and o written once,
+// 16 bytes a thread; K/V tiles come from L2 (one MQA kv head serves the
+// 16 heads' blocks: 0.5 MB per batch row at S=512, 3 MB at 3072); the
+// products run on the tensor cores through mma.sync (wgmma, the only
+// route to the full rate, is later work).  The masked halves of the
+// diagonal tiles add 12 % of mma work at (4, 512) and 3 % at (1, 3072).
+// What limits this design: each warp reads every K and V tile from
+// shared memory for its 16 rows (ldmatrix, about 72 KB a warp a tile at
+// HD 256), which caps it near 1,800 FLOP per clock per SM against the
+// tensor cores' 4,096; wgmma reads B once for 64 rows.  Measured on an
+// H100 80GB HBM3 at 700 W (device time, chip_smoke.py): 0.048-0.050 ms
+// at (4, 512) and 0.247-0.252 ms at (1, 3072), 173-278 TFLOP/s.  Two K
+// and two V buffers (160 KB at HD 256: one block an SM) with blocks
+// ordered only within each head measured 0.103 and 0.465 ms.
+// The float32 kernel runs on the CUDA cores (67 TFLOP/s of float32), and
+// its shared-memory traffic (about two loads per multiply-add) is its
+// limit.
 //
 // Offsets are size_t.
 #include <cuda_bf16.h>
@@ -53,19 +109,17 @@
 
 namespace {
 
+// ---------------------------------------------------------------------------
+// float32: CUDA cores
+// ---------------------------------------------------------------------------
+
 constexpr int kThreads = 128;   // 4 warps
 constexpr int kBq = 32;         // queries per block
 constexpr int kBk = 32;         // keys per kv tile
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -269,13 +323,386 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
   return (int)cudaErrorInvalidValue;
 }
 
+
+// ---------------------------------------------------------------------------
+// bfloat16: tensor cores (mma.sync m16n8k16), cp.async, swizzled tiles
+// ---------------------------------------------------------------------------
+namespace tc {
+
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kBq = 16 * kWarps;   // queries per block, 16 rows a warp
+constexpr int kBk = 64;            // keys per kv tile
+constexpr int kNb = kBk / 8;       // 8-key column blocks of a score tile
+
+template <int HD>
+struct Smem {                      // sizes in bf16 elements
+  static constexpr int kQ = kBq * HD;
+  static constexpr int kTile = kBk * HD;
+  static constexpr size_t kBytes = (size_t)(kQ + 2 * kTile) *
+                                   sizeof(__nv_bfloat16);
+};
+
+// Element offset of (row, col) in a tile of rows of HD bf16 whose 16-byte
+// chunks are stored at chunk ^ (row % 8); HD >= 64, so 8 chunks or more.
+template <int HD>
+__device__ __forceinline__ int swz(int row, int col) {
+  return row * HD + ((((col >> 3) ^ (row & 7))) << 3) + (col & 7);
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], unsigned a) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 "
+               "{%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
+                                                  unsigned a) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+               "{%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
+__device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4],
+                                    unsigned b0, unsigned b1) {
+  asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+               "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+               "{%0, %1, %2, %3};\n"
+               : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0),
+                 "r"(b1));
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// ROWS rows of HD from src (row s at src + s * stride; rows >= seq and
+// columns >= hd read as 0) into the swizzled tile dst.
+template <int HD, int ROWS>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* src,
+                                          size_t stride, int row0, int seq,
+                                          int hd, bool vec, int tid) {
+  constexpr int kChunks = HD / 8;
+  static_assert(ROWS * kChunks % kThreads == 0, "tile / threads");
+  static_assert(kThreads % kChunks == 0, "a thread keeps its chunk");
+  if (vec) {
+    // thread tid copies chunk c of rows r0, r0 + kStep, ...: kStep is 4, 8
+    // or 16, so a row's swizzle is one of two offsets, and each copy's
+    // shared address is one of them plus a constant
+    constexpr int kStep = kThreads / kChunks;
+    constexpr unsigned kRow = HD * sizeof(__nv_bfloat16);
+    const int c = tid % kChunks, r0 = tid / kChunks;
+    const bool col_in = c * 8 < hd;
+    const unsigned base = smem_u32(dst) + r0 * kRow;
+    const unsigned d0 = base + ((c ^ (r0 & 7)) << 4);
+    const unsigned d4 = base + ((c ^ ((r0 + 4) & 7)) << 4);
+    const __nv_bfloat16* g = src + (size_t)(row0 + r0) * stride + c * 8;
+    const size_t g_step = (size_t)kStep * stride;
+#pragma unroll
+    for (int j = 0; j < ROWS / kStep; ++j) {
+      const bool in = col_in && row0 + r0 + j * kStep < seq;
+      cp_async16(((j * kStep) & 4 ? d4 : d0) + j * kStep * kRow,
+                 in ? g + j * g_step : src, in ? 16 : 0);
+    }
+  } else {
+    for (int i = tid; i < ROWS * HD; i += kThreads) {
+      const int r = i / HD, d = i % HD;
+      const int s = row0 + r;
+      dst[swz<HD>(r, d)] = (s < seq && d < hd)
+                               ? src[(size_t)s * stride + d]
+                               : __float2bfloat16_rn(0.0f);
+    }
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 2)
+    swa_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                            const __nv_bfloat16* __restrict__ k,
+                            const __nv_bfloat16* __restrict__ v,
+                            __nv_bfloat16* __restrict__ o, int seq,
+                            int heads, int kv_heads, int hd, int window,
+                            float scale_log2, int vec) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* ks = qs + Smem<HD>::kQ;            // [kBk][HD]
+  __nv_bfloat16* vs = ks + Smem<HD>::kTile;         // [kBk][HD]
+  constexpr int kD = HD / 8;       // 8-dim column blocks of the output
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  // a 1-D grid, dispatched in order: every (head, batch row) of the last
+  // query tile first (the longest bands), the first query tile last
+  const int nq = (seq + kBq - 1) / kBq;
+  const int rows = (int)gridDim.x / nq;             // heads * batch rows
+  const int q0 = (nq - 1 - (int)blockIdx.x / rows) * kBq;
+  const int h = (int)blockIdx.x % rows % heads;
+  const size_t b = (size_t)((int)blockIdx.x % rows / heads);
+  const int kh = h / (heads / kv_heads);
+  const size_t q_stride = (size_t)heads * hd;      // one position of q, o
+  const size_t kv_stride = (size_t)kv_heads * hd;  // one position of k, v
+  const __nv_bfloat16* qb = q + b * (size_t)seq * q_stride + (size_t)h * hd;
+  const __nv_bfloat16* kb = k + b * (size_t)seq * kv_stride +
+                            (size_t)kh * hd;
+  const __nv_bfloat16* vb = v + b * (size_t)seq * kv_stride +
+                            (size_t)kh * hd;
+  __nv_bfloat16* ob = o + b * (size_t)seq * q_stride + (size_t)h * hd;
+
+  const int q_last = min(q0 + kBq, seq) - 1;
+  const int t_first = max(0, q0 - window + 1) / kBk;
+  const int t_last = q_last / kBk;
+
+  load_tile<HD, kBq>(qs, qb, q_stride, q0, seq, hd, vec, tid);
+  load_tile<HD, kBk>(ks, kb, kv_stride, t_first * kBk, seq, hd, vec, tid);
+  cp_async_commit();
+
+  float acc[kD][4];
+#pragma unroll
+  for (int d = 0; d < kD; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[d][e] = 0.0f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+  const int row = q0 + warp * 16 + g;   // this thread's rows: row, row + 8
+
+  // This lane's ldmatrix row addresses (bytes in shared memory).  Every
+  // row it names has row % 8 == lane % 8, so chunk 8u + w of a row sits at
+  // 8u + (w ^ lane % 8): four swizzled offsets per operand (w = 2j + the
+  // lane's half), the rest compile-time constants.
+  constexpr unsigned kRow = HD * sizeof(__nv_bfloat16);
+  const int r7 = lane & 7;
+  unsigned q_off[4], k_off[4], v_off[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    // Q (A): rows 16 warp + lane % 16, dims 16kk + 8 (lane / 16)
+    q_off[j] = smem_u32(qs) + (warp * 16 + (lane & 15)) * kRow +
+               (((2 * j + (lane >> 4)) ^ r7) << 4);
+    // K (B of Q K^T): keys 16 n2 + lane % 8 + 8 (lane / 16), dims
+    // 16kk + 8 (lane / 8 % 2)
+    k_off[j] = smem_u32(ks) + ((lane & 7) + ((lane >> 4) << 3)) * kRow +
+               (((2 * j + ((lane >> 3) & 1)) ^ r7) << 4);
+    // V (B of P V, transposed): keys 16kk + lane % 8 + 8 (lane / 8 % 2),
+    // dims 16 d2 + 8 (lane / 16)
+    v_off[j] = smem_u32(vs) + ((lane & 7) + (((lane >> 3) & 1) << 3)) * kRow +
+               (((2 * j + (lane >> 4)) ^ r7) << 4);
+  }
+
+  for (int t = t_first; t <= t_last; ++t) {
+    // K_t has landed and every warp is done with V_{t-1}: V_t's copy
+    // runs under Q K_t^T and the softmax
+    cp_async_wait<0>();
+    __syncthreads();
+    load_tile<HD, kBk>(vs, vb, kv_stride, t * kBk, seq, hd, vec, tid);
+    cp_async_commit();
+
+    // S = Q K^T: this warp's 16 rows x kBk keys, kNb blocks of 8 keys
+    float s[kNb][4];
+#pragma unroll
+    for (int n = 0; n < kNb; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      unsigned a[4];
+      ldmatrix_x4(a, q_off[kk & 3] + (kk >> 2) * 128);
+#pragma unroll
+      for (int n2 = 0; n2 < kNb / 2; ++n2) {
+        unsigned bk[4];
+        ldmatrix_x4(bk, k_off[kk & 3] + (kk >> 2) * 128 + n2 * 16 * kRow);
+        mma(s[2 * n2], a, bk[0], bk[1]);
+        mma(s[2 * n2 + 1], a, bk[2], bk[3]);
+      }
+    }
+
+    // scale; mask only the tiles that cross the diagonal or the window's
+    // lower edge.  Fragment element e: row + 8 * (e / 2), key
+    // k0 + 8n + 2 tig + e % 2.
+    const int k0 = t * kBk;
+    const bool edge = k0 + kBk - 1 > q0 || q0 + kBq - 1 - k0 >= window;
+#pragma unroll
+    for (int n = 0; n < kNb; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = __fmul_rn(s[n][e], scale_log2);
+        if (edge) {
+          const int i = row + (e >> 1) * 8;
+          const int j = k0 + n * 8 + tig * 2 + (e & 1);
+          if (j > i || i - j >= window) x = kNegInf;
+        }
+        s[n][e] = x;
+      }
+
+    // online softmax; a row's 4 lanes (a quad) share its max
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = m[r];
+#pragma unroll
+      for (int n = 0; n < kNb; ++n)
+        mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      corr[r] = exp2f(m[r] - mx);
+      m[r] = mx;
+      float sum = 0.0f;
+#pragma unroll
+      for (int n = 0; n < kNb; ++n)
+#pragma unroll
+        for (int e = 2 * r; e < 2 * r + 2; ++e) {
+          const float p = exp2f(s[n][e] - mx);
+          s[n][e] = p;
+          sum = __fadd_rn(sum, p);
+        }
+      l[r] = __fadd_rn(__fmul_rn(l[r], corr[r]), sum);
+    }
+#pragma unroll
+    for (int d = 0; d < kD; ++d)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[d][e] = __fmul_rn(acc[d][e],
+                                                        corr[e >> 1]);
+
+    // V_t has landed and every warp is done with K_t: K_{t+1}'s copy runs
+    // under P V_t
+    cp_async_wait<0>();
+    __syncthreads();
+    if (t < t_last) {
+      load_tile<HD, kBk>(ks, kb, kv_stride, (t + 1) * kBk, seq, hd, vec,
+                         tid);
+      cp_async_commit();
+    }
+
+    // O += P V: P's f32 fragments of keys 16kk.. are the A fragment
+#pragma unroll
+    for (int kk = 0; kk < kNb / 2; ++kk) {
+      const unsigned a[4] = {
+          pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+          pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int d2 = 0; d2 < kD / 2; ++d2) {
+        unsigned bv[4];
+        ldmatrix_x4_trans(bv, v_off[d2 & 3] + (d2 >> 2) * 128 +
+                                  kk * 16 * kRow);
+        mma(acc[2 * d2], a, bv[0], bv[1]);
+        mma(acc[2 * d2 + 1], a, bv[2], bv[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = __fadd_rn(l[r], __shfl_xor_sync(0xffffffffu, l[r], 1));
+    l[r] = __fadd_rn(l[r], __shfl_xor_sync(0xffffffffu, l[r], 2));
+    l[r] = fmaxf(l[r], 1e-30f);
+  }
+  // stage the output in this warp's own Q rows (no other warp reads them)
+  __nv_bfloat16* os = qs;
+#pragma unroll
+  for (int d = 0; d < kD; ++d)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int rr = warp * 16 + g + 8 * r;
+      *reinterpret_cast<__nv_bfloat162*>(os + swz<HD>(rr, d * 8 + tig * 2)) =
+          __floats2bfloat162_rn(acc[d][2 * r] / l[r],
+                                acc[d][2 * r + 1] / l[r]);
+    }
+  __syncwarp();
+  if (vec) {
+    constexpr int kChunks = HD / 8;
+#pragma unroll
+    for (int j = 0; j < 16 * kChunks / 32; ++j) {
+      const int i = lane + 32 * j;
+      const int rr = warp * 16 + i / kChunks, c = i % kChunks;
+      const int s = q0 + rr;
+      if (s < seq && c * 8 < hd)
+        *reinterpret_cast<uint4*>(ob + (size_t)s * q_stride + c * 8) =
+            *reinterpret_cast<const uint4*>(os + swz<HD>(rr, c * 8));
+    }
+  } else {
+    for (int i = lane; i < 16 * HD; i += 32) {
+      const int rr = warp * 16 + i / HD, d = i % HD;
+      const int s = q0 + rr;
+      if (s < seq && d < hd) ob[(size_t)s * q_stride + d] = os[swz<HD>(rr, d)];
+    }
+  }
+}
+
+template <int HD>
+int launch(const void* q, const void* k, const void* v, void* o,
+           long long bsz, long long seq, long long heads, long long kv_heads,
+           long long hd, long long window, cudaStream_t st) {
+  auto kern = swa_attention_tc_kernel<HD>;
+  const size_t smem = Smem<HD>::kBytes;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int vec = hd % 8 == 0 &&
+                  (((size_t)q | (size_t)k | (size_t)v | (size_t)o) & 15) == 0;
+  const long long blocks = (seq + kBq - 1) / kBq * heads * bsz;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)blocks);
+  // the softmax runs in base 2: scores times log2(e) / sqrt(hd)
+  const float scale_log2 = 1.4426950408889634f / sqrtf((float)hd);
+  kern<<<grid, kThreads, smem, st>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, (int)seq, (int)heads,
+      (int)kv_heads, (int)hd, (int)window, scale_log2, vec);
+  return (int)cudaGetLastError();
+}
+
+int dispatch(const void* q, const void* k, const void* v, void* o,
+             long long bsz, long long seq, long long heads,
+             long long kv_heads, long long hd, long long window,
+             cudaStream_t st) {
+  if (hd <= 64)
+    return launch<64>(q, k, v, o, bsz, seq, heads, kv_heads, hd, window,
+                      st);
+  if (hd <= 128)
+    return launch<128>(q, k, v, o, bsz, seq, heads, kv_heads, hd, window,
+                       st);
+  if (hd <= 256)
+    return launch<256>(q, k, v, o, bsz, seq, heads, kv_heads, hd, window,
+                       st);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // q, o: (bsz, seq, heads, hd); k, v: (bsz, seq, kv_heads, hd); contiguous,
-// all float32 (dtype 0) or all bfloat16 (dtype 1).  bsz and heads in
-// [1, 65535], seq >= 1, kv_heads divides heads, 1 <= hd <= 256,
-// 1 <= window <= seq.  Returns cudaGetLastError() (cudaErrorInvalidValue
-// for another dtype or hd).
+// all float32 (dtype 0: the CUDA-core kernel) or all bfloat16 (dtype 1:
+// the tensor-core kernel).  bsz and heads in [1, 65535], seq >= 1,
+// kv_heads divides heads, 1 <= hd <= 256, 1 <= window <= seq.  Returns
+// cudaGetLastError() (cudaErrorInvalidValue for another dtype or hd).
 extern "C" int swa_attention(const void* q, const void* k, const void* v,
                              void* o, long long bsz, long long seq,
                              long long heads, long long kv_heads,
@@ -286,7 +713,7 @@ extern "C" int swa_attention(const void* q, const void* k, const void* v,
     return dispatch<float>(q, k, v, o, bsz, seq, heads, kv_heads, hd,
                            window, st);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, o, bsz, seq, heads, kv_heads,
-                                   hd, window, st);
+    return tc::dispatch(q, k, v, o, bsz, seq, heads, kv_heads, hd, window,
+                        st);
   return (int)cudaErrorInvalidValue;
 }

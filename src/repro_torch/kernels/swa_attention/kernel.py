@@ -1,7 +1,14 @@
-"""Sliding-window flash attention on the card: wrapper of the CUDA kernel
-``swa_attention`` (``csrc/swa_attention.cu``, which states its design and
-bound).  It replaces the JAX package's ``kernels/swa_attention/
+"""Sliding-window flash attention on the card: wrapper of the CUDA kernels
+behind ``swa_attention`` (``csrc/swa_attention.cu``, which states their
+design and bound).  It replaces the JAX package's ``kernels/swa_attention/
 kernel.py::swa_attention_pallas``.
+
+The inputs' type picks the kernel: bfloat16 takes the tensor-core kernel
+(mma.sync on bf16 tiles, f32 accumulation, P rounded to bf16 before the
+PV product as FlashAttention rounds it); float32 takes the CUDA-core
+kernel, whose products stay in float32.  Both count as a launch of
+``swa_attention``.  There is no fallback: a bfloat16 call launches the
+tensor-core kernel or raises.
 
 The wrapper validates q (B,S,H,hd) and k, v (B,S,K,hd): one CUDA device,
 all float32 or all bfloat16, contiguous, K dividing H, hd at most 256,

@@ -15,7 +15,7 @@ from repro_torch.kernels import launches, reset_launches
 from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_ref
 from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_ref
 from repro_torch.kernels.swa_attention import (swa_attention,
-                                               swa_attention_ref)
+                                               swa_attention_gqa)
 
 pytestmark = pytest.mark.gpu
 
@@ -123,16 +123,13 @@ def _swa_inputs(b, s, h, kh, hd, dtype, seed, device):
             for shape in ((b, s, h, hd), (b, s, kh, hd), (b, s, kh, hd))]
 
 
-def _expanded_ref(q, k, v, window):
-    """The plain version on the card, K/V repeated over each group."""
-    g = q.shape[2] // k.shape[2]
-    return swa_attention_ref(q, k.repeat_interleave(g, 2),
-                             v.repeat_interleave(g, 2), window)
-
-
 SWA_CASES = [(1, 256, 2, 2, 64, 64), (1, 256, 2, 2, 64, 128),
              (2, 128, 4, 2, 32, 32), (2, 100, 16, 1, 256, 2048),
-             (1, 300, 4, 1, 256, 40), (1, 77, 3, 3, 80, 1)]
+             (1, 300, 4, 1, 256, 40), (1, 77, 3, 3, 80, 1),
+             # recurrentgemma-9b's prefill; a window no kv tile divides;
+             # hd 20, no multiple of 8 (the kernels' scalar copy loops)
+             (4, 512, 16, 1, 256, 2048), (1, 600, 4, 1, 128, 100),
+             (2, 70, 2, 1, 20, 16)]
 
 
 @pytest.mark.parametrize("b,s,h,kh,hd,window", SWA_CASES)
@@ -141,15 +138,16 @@ def test_swa_attention_kernel_matches_plain_version(cuda, b, s, h, kh, hd,
                                                     window, dtype):
     """The JAX package's kernel tolerances (tests/test_kernels.py): 2e-5
     at float32 (sums in another order), 3e-2 at bfloat16 (one rounding
-    of the output either side of a bfloat16 step); one launch per call,
-    K/V not repeated."""
+    of the output either side of a bfloat16 step, and the tensor-core
+    kernel's P rounded to bfloat16 before the PV product); one launch
+    per call, K/V not repeated."""
     q, k, v = _swa_inputs(b, s, h, kh, hd, dtype, s + hd, cuda)
     reset_launches()
     out = swa_attention(q, k, v, window)
     assert launches(["swa_attention"]) == {"swa_attention": 1}
     assert out.dtype == dtype and out.shape == q.shape
     tol = 2e-5 if dtype == torch.float32 else 3e-2
-    torch.testing.assert_close(out.float(), _expanded_ref(
+    torch.testing.assert_close(out.float(), swa_attention_gqa(
         q, k, v, window).float(), rtol=tol, atol=tol)
 
 
@@ -170,3 +168,61 @@ def test_swa_attention_kernel_refuses_what_it_does_not_take(cuda):
     big = _swa_inputs(1, 4, 1, 1, 320, torch.float32, 0, cuda)
     with pytest.raises(ValueError, match="head_dim"):
         swa_attention(*big, 2)
+
+
+# ---------------------------------------------------------------------------
+# gradients: kernel forward, the plain version's gradient backward
+# ---------------------------------------------------------------------------
+def _weighted_grads(fn, tensors, seed):
+    """Outputs and input gradients of sum(out * W), W from numpy."""
+    xs = [t.detach().clone().requires_grad_(True) for t in tensors]
+    outs = fn(*xs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    rng = np.random.default_rng(seed)
+    loss = sum((o.float() * torch.from_numpy(rng.standard_normal(
+        tuple(o.shape)).astype(np.float32)).to(o.device)).sum()
+        for o in outs)
+    loss.backward()
+    return outs, [x.grad for x in xs]
+
+
+def _check_grads(name, fn, plain, tensors, out_tol):
+    """One launch (the forward); the outputs within the kernel's
+    tolerance; the gradients those of the plain version on the same card
+    tensors (the backward is its autograd: equal up to run-to-run
+    reduction order, held to 1e-6)."""
+    reset_launches()
+    outs, grads = _weighted_grads(fn, tensors, 5)
+    assert launches([name]) == {name: 1}
+    routs, rgrads = _weighted_grads(plain, tensors, 5)
+    assert launches([name]) == {name: 1}
+    for o, r in zip(outs, routs):
+        torch.testing.assert_close(o.float(), r.float(), **out_tol)
+    for g, r in zip(grads, rgrads):
+        assert g is not None and g.dtype == r.dtype
+        torch.testing.assert_close(g.float(), r.float(), rtol=1e-6,
+                                   atol=1e-6)
+
+
+def test_mamba_scan_gradients_equal_plain_versions(cuda):
+    _check_grads("mamba_scan", mamba_scan, mamba_scan_ref,
+                 _scan_inputs(2, 33, 128, 16, 4, cuda),
+                 dict(rtol=1e-5, atol=1e-5))
+
+
+def test_rglru_scan_gradients_equal_plain_versions(cuda):
+    _check_grads("rglru_scan", rglru_scan, rglru_scan_ref,
+                 _rglru_inputs(2, 40, 300, 6, cuda),
+                 dict(rtol=0.0, atol=0.0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [16, 256])
+def test_swa_attention_gradients_equal_plain_versions(cuda, dtype, window):
+    """GQA (K < H): the K and V gradients sum over each group."""
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    _check_grads("swa_attention",
+                 lambda q, k, v: swa_attention(q, k, v, window),
+                 lambda q, k, v: swa_attention_gqa(q, k, v, window),
+                 _swa_inputs(2, 130, 4, 2, 64, dtype, 7, cuda),
+                 dict(rtol=tol, atol=tol))

@@ -71,6 +71,9 @@ NEW_IN_SLICE_5 = (
     "repro_torch.kernels.swa_attention.kernel",
     "repro_torch.kernels.swa_attention.ops", "repro_torch.models.mlp")
 
+# the backward of the forward-only CUDA kernels (scans, attention)
+NEW_IN_SLICE_6 = ("repro_torch.kernels._autograd",)
+
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
@@ -80,7 +83,8 @@ def _forbidden(name: str) -> bool:
 def test_port_modules_import_no_jax_and_no_repro():
     mods = _port_modules()
     assert "repro_torch.kernels.flat_update.ops" in mods
-    for name in NEW_IN_SLICE_2 + NEW_IN_SLICE_4 + NEW_IN_SLICE_5:
+    for name in (NEW_IN_SLICE_2 + NEW_IN_SLICE_4 + NEW_IN_SLICE_5
+                 + NEW_IN_SLICE_6):
         assert name in mods, name
     code = (
         "import importlib, json, sys\n"
