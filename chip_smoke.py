@@ -36,7 +36,8 @@ bf16).  Each model's random weights are drawn from a seeded generator
 on the card; falcon-mamba is freed before recurrentgemma is drawn.
 
 Phases (one JSON line each):
-  device      the card, its power limit, the CUDA and PyTorch versions
+  device      the card, its power limit, the CUDA and PyTorch versions,
+              and what a CUDA-event pair reads around an empty call
   build       nvcc builds every kernel library from csrc/, one nvcc per
               source, all started together (seconds, ptxas report)
   flat_update_batch / send_view / dana_master_update / gap_update /
@@ -46,9 +47,19 @@ Phases (one JSON line each):
               tolerance stated; CUDA-event times (median of 20) beside
               the least time the card could take (bound) and the plain
               version's time; gap_update also twice on the same inputs,
-              bit for bit; mamba_scan at the prefill shape (B=4, S=512,
-              D=8192, N=16), at S=1, at S=77 with a nonzero h0, at N=8,
-              and split in two calls chained through the last state;
+              bit for bit; send_view in its three modes (N=1 bit for
+              bit, rate-weighted and adaptive N=64) with each mode's
+              device time from torch.profiler, and at N=1 in turns with
+              torch.add; mamba_scan timed at the prefill shape (B=4,
+              S=512, D=8192, N=16), the Engine's one-request prefill
+              (B=1, S=256, on bf16 xc with B and C split from a bf16
+              projection, as the Engine serves it) and a decode step
+              (S=1), each with its device time, its last state bit for
+              bit the plain version's and its bounds; checked at S=77
+              with a nonzero h0, at N=8, at D=1002 (plain staging), on
+              bf16 xc with B and C split from a bf16 projection as
+              apply_mamba passes them (prefill and decode), and split
+              in two calls chained through the last state;
               rglru_scan bit for bit at recurrentgemma-9b's prefill shape
               (B=4, S=512, D=4096), at S=1, at S=77 with D=1000 and a
               nonzero h0, and chained; swa_attention (bf16, the
@@ -238,6 +249,25 @@ def time_ms(fn, reps=REPS):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def time_pair(fn_a, fn_b, reps=4 * REPS):
+    """Median CUDA-event times of two calls taken in turns (a, b, b, a,
+    ...), so that drift on the host touches both alike."""
+    for fn in (fn_a, fn_b, fn_a, fn_b):
+        fn()
+    torch.cuda.synchronize()
+    times = ([], [])
+    for i in range(reps):
+        for j in ((0, 1) if i % 2 == 0 else (1, 0)):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            (fn_a, fn_b)[j]()
+            b.record()
+            b.synchronize()
+            times[j].append(a.elapsed_time(b))
+    return float(np.median(times[0])), float(np.median(times[1]))
 
 
 def device_ms(fn, name, reps=REPS):
@@ -443,12 +473,16 @@ def check_send(card, label, rows, n, adaptive, seed, library=False):
                                 u2=u2))
     torch.cuda.synchronize()
     tol = ELEM_TOL if n == 1 else WEIGHTED_TOL
+
+    def call():
+        return flat_send_view(theta, slab, w, c, u2)
     rec = {"phase": "send_view", "mode": label, "R": rows, "N": n,
            "adaptive": adaptive,
            "max_abs_err": max_err(out, ref, tol, f"send_view {label}",
                                   scale),
+           "bit_equal": bool(torch.equal(out, ref)),
            "tolerance": tol,
-           "ms": time_ms(lambda: flat_send_view(theta, slab, w, c, u2)),
+           "device_ms": device_ms(call, "send_view"),
            "plain_ms": time_ms(lambda: flat_send_view_ref(theta, slab, w,
                                                           c, u2=u2))}
     p = rows * 128
@@ -456,11 +490,21 @@ def check_send(card, label, rows, n, adaptive, seed, library=False):
     rec["bytes"] = nbytes
     rec["bound_ms"], rec["bound_by"] = card.bound(
         nbytes, p * (2 * n + 2 + 3 * adaptive))
+    rec["device_share_of_bound"] = rec["bound_ms"] / rec["device_ms"]
     rec["library_ms"] = None
     if library:
         v0 = slab[0]
-        rec["library_ms"] = time_ms(
-            lambda: torch.add(theta, v0, alpha=-float(c)))
+
+        def add():
+            return torch.add(theta, v0, alpha=-float(c))
+        # the kernel's call and torch.add's in turns
+        rec["ms"], rec["library_ms"] = time_pair(call, add)
+        rec["library_device_ms"] = device_ms(add, "add")
+    else:
+        rec["ms"] = time_ms(call)
+    if n == 1 and not rec["bit_equal"]:
+        raise AssertionError(f"send_view {label}: not bit-equal to its "
+                             f"plain version")
     emit(rec)
     return rec
 
@@ -959,19 +1003,41 @@ def scan_inputs(b, s, d, n, seed, zero_h0=False):
     return x, delta, bm, cm, a, h0
 
 
-def scan_bytes_ops(b, s, d, n):
+def scan_proj_inputs(b, s, d, n, seed, dtype=torch.bfloat16, dt_rank=256,
+                     zero_h0=False):
+    """The scan's inputs as ``apply_mamba`` hands them over: xc in
+    ``dtype``, B and C column slices of one (B, S, dt_rank + 2N)
+    projection cut with ``torch.split`` (last axis contiguous, row stride
+    dt_rank + 2N), delta, A and h0 float32."""
+    x, dl, _, _, a, h0 = scan_inputs(b, s, d, n, seed, zero_h0)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    proj = torch.randn((b, s, dt_rank + 2 * n), generator=gen,
+                       device="cuda").to(dtype)
+    _, bm, cm = torch.split(proj, [dt_rank, n, n], dim=-1)
+    return x.to(dtype), dl, bm, cm, a, h0
+
+
+def scan_bytes_ops(b, s, d, n, xsize=4):
     """Each input read once, each output written once (x, delta, y; B, C;
-    A; h0, last), the f32 operations (6 per state element per step, 1
-    per channel per step) and the exponentials (1 per state element per
-    step)."""
-    nbytes = 4 * (3 * b * s * d + 2 * b * s * n + d * n + 2 * b * d * n)
+    A; h0, last; x, B and C of ``xsize`` bytes, the rest float32), the
+    f32 operations (6 per state element per step, 1 per channel per
+    step) and the exponentials (1 per state element per step)."""
+    nbytes = (xsize * (b * s * d + 2 * b * s * n)
+              + 4 * (2 * b * s * d + d * n + 2 * b * d * n))
     return nbytes, 6 * b * s * d * n + b * s * d, b * s * d * n
 
 
-def check_scan(card, label, b, s, d, n, seed, zero_h0=False, time_it=False):
+def check_scan(card, label, b, s, d, n, seed, zero_h0=False, time_it=False,
+               proj_dtype=None):
+    """``proj_dtype``: xc in that dtype and B, C strided slices of a
+    projection (``scan_proj_inputs``), as ``apply_mamba`` passes them."""
     from repro_torch.kernels.mamba_scan import mamba_scan_ref
-    from repro_torch.kernels.mamba_scan.kernel import mamba_scan_cuda
-    x, dl, bm, cm, a, h0 = scan_inputs(b, s, d, n, seed, zero_h0)
+    from repro_torch.kernels.mamba_scan.kernel import (layout_for,
+                                                       mamba_scan_cuda)
+    x, dl, bm, cm, a, h0 = (scan_inputs(b, s, d, n, seed, zero_h0)
+                            if proj_dtype is None else
+                            scan_proj_inputs(b, s, d, n, seed, proj_dtype,
+                                             zero_h0=zero_h0))
     y, last = mamba_scan_cuda(x, dl, bm, cm, a, h0)
     ry, rlast = mamba_scan_ref(x, dl, bm, cm, a, h0)
     # |y_t| <= C_t . h_t with |x|, |B|, |C|, |h0| (exp(delta*A) > 0)
@@ -982,16 +1048,26 @@ def check_scan(card, label, b, s, d, n, seed, zero_h0=False, time_it=False):
                             f"mamba_scan {label} last")}
     rec = {"phase": "mamba_scan", "mode": label, "B": b, "S": s, "D": d,
            "N": n, "h0": "zero" if zero_h0 else "random",
+           "inputs": ("float32, contiguous" if proj_dtype is None else
+                      f"{proj_dtype} xc, B and C split from a projection"),
+           "layout": "step kernel, G=4" if s == 1 else
+           "G={}, C={}".format(*layout_for(b, d)),
            "max_abs_err": max(errs.values()), "max_abs_err_by_output": errs,
            "last_bit_equal": bool(torch.equal(last, rlast)),
            "tolerance": SCAN_TOL,
            "tolerance_reason": "y: the N-sum in another order, against the "
                                "sum of magnitudes"}
+    if not rec["last_bit_equal"]:
+        raise AssertionError(f"mamba_scan {label}: the last state is not "
+                             f"bit-equal to the plain version's")
     if time_it:
-        rec["ms"] = time_ms(lambda: mamba_scan_cuda(x, dl, bm, cm, a, h0))
+        def call():
+            return mamba_scan_cuda(x, dl, bm, cm, a, h0)
+        rec["ms"] = time_ms(call)
+        rec["device_ms"] = device_ms(call, "mamba_scan")
         rec["plain_ms"] = time_ms(lambda: mamba_scan_ref(x, dl, bm, cm, a,
                                                          h0))
-        nbytes, nops, nexp = scan_bytes_ops(b, s, d, n)
+        nbytes, nops, nexp = scan_bytes_ops(b, s, d, n, x.element_size())
         rec.update(bytes=nbytes, exps=nexp, library_ms=None,
                    bound_bytes_ms=nbytes / card.bw * 1e3,
                    bound_f32_ms=nops / card.f32 * 1e3,
@@ -1028,17 +1104,33 @@ def check_scan_chained(b, s, d, n, split, seed):
 
 
 def phase_mamba_scan(card):
-    """The prefill shape (its h0 is zero) timed; a decode step, an odd S
-    with a nonzero h0, N=8 and a D that is no multiple of the block; a
-    chained pair."""
+    """Timed: the prefill shape (its h0 is zero), the Engine's one-request
+    prefill at its largest bucket on the inputs the Engine gives it (bf16
+    xc, B and C split from a bf16 projection) and a decode step.
+    Checked: an odd S
+    with a nonzero h0, N=8 and a D that is no multiple of the block, D
+    not a multiple of 8 (plain staging), bf16 xc with B and C split from
+    a bf16 projection at prefill and decode, a chained pair."""
     recs = {"main": check_scan(card, "prefill B=4 S=512 D=8192 N=16 "
                                "(serve_generate)", SERVE_BATCH, SERVE_PROMPT,
                                8192, 16, 41, zero_h0=True, time_it=True)}
     torch.cuda.empty_cache()
+    recs["engine"] = check_scan(card, "Engine prefill B=1 S=256 (largest "
+                                "bucket, serve_engine)", 1, 256, 8192, 16,
+                                46, zero_h0=True, time_it=True,
+                                proj_dtype=torch.bfloat16)
     recs["decode"] = check_scan(card, "decode S=1", SERVE_BATCH, 1, 8192, 16,
                                 42, time_it=True)
     check_scan(card, "odd S=77, nonzero h0", SERVE_BATCH, 77, 8192, 16, 43)
     check_scan(card, "N=8, D=1000 (masked edge)", 2, 100, 1000, 8, 44)
+    check_scan(card, "D=1002 (plain staging), S=40", 2, 40, 1002, 16, 47)
+    recs["bf16_prefill"] = check_scan(
+        card, "bf16 xc, B and C split from a bf16 projection, prefill",
+        SERVE_BATCH, SERVE_PROMPT, 8192, 16, 48, zero_h0=True,
+        proj_dtype=torch.bfloat16)
+    recs["bf16_decode"] = check_scan(
+        card, "bf16 xc, B and C split from a bf16 projection, decode",
+        SERVE_BATCH, 1, 8192, 16, 49, proj_dtype=torch.bfloat16)
     check_scan_chained(SERVE_BATCH, SERVE_PROMPT, 8192, 16, 200, 45)
     torch.cuda.empty_cache()
     return recs
@@ -1503,7 +1595,10 @@ def main():
           "python": sys.version.split()[0],
           "peak_bandwidth_Bps": card.bw, "peak_f32_flops": card.f32,
           "sms": card.sms, "max_sm_mhz": card.max_sm_mhz,
-          "peak_exp_per_s": card.exp_rate})
+          "peak_exp_per_s": card.exp_rate,
+          # what time_ms reads for a call that does nothing: the floor
+          # under every "ms" of a short call
+          "empty_call_ms": time_ms(lambda: None)})
     t0 = time.perf_counter()
     _build.build_all()             # one nvcc per source, all at once
     for lib in _build.LIBRARIES:
@@ -1592,10 +1687,24 @@ def main():
         kernels[0][f"{key}_k8_cluster_wire"] = fu["cluster"][key]
         kernels[3][f"{key}_k8"] = gu["k8"][key]
     kernels[3]["also_replaces"] = "src/repro/kernels/flat_update/kernel.py:828"
-    for key in ("ms", "bound_ms", "plain_ms", "max_abs_err", "bound_by"):
+    for key in ("device_ms", "bound_ms", "device_share_of_bound"):
+        kernels[1][key] = sv["main"][key]
+        for mode in ("weighted", "adaptive"):
+            kernels[1][f"{key}_{mode}_N64"] = sv[mode][key]
+    for mode in ("weighted", "adaptive"):
+        kernels[1][f"ms_{mode}_N64"] = sv[mode]["ms"]
+    kernels[1]["library_device_ms"] = sv["main"]["library_device_ms"]
+    kernels[1]["bit_equal"] = sv["main"]["bit_equal"]
+    for key in ("ms", "device_ms", "bound_ms", "plain_ms", "max_abs_err",
+                "bound_by", "last_bit_equal", "layout"):
         kernels[4][f"{key}_decode_S1"] = ms["decode"][key]
-    for key in ("bound_bytes_ms", "bound_f32_ms", "bound_exp_ms"):
+        kernels[4][f"{key}_engine_prefill"] = ms["engine"][key]
+    kernels[4]["inputs_engine_prefill"] = ms["engine"]["inputs"]
+    for key in ("bound_bytes_ms", "bound_f32_ms", "bound_exp_ms",
+                "device_ms", "last_bit_equal", "layout"):
         kernels[4][key] = ms["main"][key]
+    for key in ("bf16_prefill", "bf16_decode"):
+        kernels[4][f"max_abs_err_{key}"] = ms[key]["max_abs_err"]
     for key in ("ms", "bound_ms", "plain_ms", "max_abs_err", "bound_by"):
         kernels[5][f"{key}_decode_S1"] = rs["decode"][key]
     for key in ("ms", "bound_ms", "plain_ms", "library_ms", "max_abs_err",

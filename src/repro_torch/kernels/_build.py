@@ -16,6 +16,11 @@ also loads its libraries in ``Master.warm`` before workers start).
 ``build_all()`` starts one ``nvcc`` per source, all at once, and waits
 for them together.
 
+``launch(fn, index, *args)`` is the wrappers' lean launch path: it
+calls a library's C entry point with the raw handle of the current CUDA
+stream of device ``index`` appended, and enters ``torch.cuda.device``
+only when that device is not the current one.
+
 ``LAUNCHES`` counts kernel launches per kernel name.  The wrappers call
 ``count(name)`` where they launch a kernel and nowhere else, so a run
 can show that its path went through the kernels (``reset_launches``
@@ -33,6 +38,8 @@ import threading
 import time
 from pathlib import Path
 from typing import Callable
+
+import torch
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 # no --use_fast_math: the kernels need IEEE sqrtf and division;
@@ -67,6 +74,23 @@ def launches(names=None) -> dict:
 def check(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+
+
+def launch(fn, index: int, *args) -> int:
+    """``fn(*args, stream)`` on device ``index``: ``stream`` is the raw
+    handle of that device's current stream (PyTorch's, so the launch
+    orders with the caller's work and CUDA graph capture sees it).
+
+    The stream comes from the private ``torch._C._cuda_getCurrentRawStream``
+    (0.11-0.17 us a call against 3.5-5.9 us for the public
+    ``torch.cuda.current_stream(dev).cuda_stream``, which builds a
+    ``Stream`` object; ``scripts/torch_host_cost.py``); this is the only
+    place that calls it.  The device context (1.8-2.1 us) is entered only
+    when ``index`` is not the current device."""
+    if index == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
 
 
 def _nvcc() -> str:

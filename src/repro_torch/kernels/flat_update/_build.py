@@ -56,6 +56,7 @@ GAP_LIB = _build.Library("gap_update", GAP_SOURCE, _bind_gap,
 load = LIB.load
 check = _build.check
 count = _build.count
+launch = _build.launch
 
 
 def launches() -> dict:

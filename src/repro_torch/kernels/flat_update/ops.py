@@ -372,6 +372,10 @@ class FlatAlgorithm:
         self.schedule = algo.schedule
         self.lane = SENT_LANE if fam.stateful_send else None
         self.spec: FlatSpec | None = None
+        # (N, device) -> the unit weights of the sends, made at the first
+        # send (no allocation and fill at every send); the kernel only
+        # reads them
+        self._unit_weights: dict = {}
 
     # -- Algorithm API ---------------------------------------------------
     def init(self, params, num_workers: int) -> dict:
@@ -454,8 +458,12 @@ class FlatAlgorithm:
             w = torch.from_numpy(self._rate_weights(flat, i)).to(
                 slab.device)
         else:
-            w = torch.ones((slab.shape[0],), dtype=torch.float32,
-                           device=slab.device)
+            key = (slab.shape[0], slab.device)
+            w = self._unit_weights.get(key)
+            if w is None:
+                w = self._unit_weights.setdefault(key, torch.ones(
+                    (slab.shape[0],), dtype=torch.float32,
+                    device=slab.device))
         return flat_send_view(flat["theta"], slab, w,
                               self._send_scale(flat),
                               u2=flat["u2"] if sp.adaptive else None,

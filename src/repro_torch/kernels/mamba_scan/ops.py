@@ -15,9 +15,11 @@ from .ref import mamba_scan_ref
 
 
 def mamba_scan(x, delta, b, c, a, h0):
-    """x, delta: (B,S,D); b, c: (B,S,N); a: (D,N); h0: (B,D,N), float32.
-    Returns (y (B,S,D), h_last (B,D,N))."""
-    if x.device.type == "cuda":
+    """x, delta: (B,S,D); b, c: (B,S,N); a: (D,N); h0: (B,D,N).  x, b
+    and c float32 or bfloat16 (b and c may be column slices of one
+    projection), the rest float32.  Returns (y (B,S,D) float32, h_last
+    (B,D,N))."""
+    if x.is_cuda:
         return _autograd.apply(mamba_scan_cuda, mamba_scan_ref,
                                (x, delta, b, c, a, h0))
     if x.device.type == "cpu":

@@ -81,8 +81,10 @@ def init_mamba(gen, d_model, d_inner, d_state, conv_width=4, dt_rank=None,
 
 def apply_mamba(params, x, state=None):
     """x: (B,S,d_model).  state: dict(conv, ssm) or None.  Returns
-    (y, new_state).  The scan takes float32 xc, delta, B, C, A and the
-    float32 ``ssm`` state, as the JAX package's kernel path does."""
+    (y, new_state).  The scan computes in float32, as the JAX package's
+    kernel path does: it takes xc, B and C in the model's dtype (B and C
+    as column slices of the projection, no copy) and widens them itself,
+    exactly; delta, A and the ``ssm`` state are float32."""
     dt_ = x.dtype
     d_inner = params["dt_proj"].shape[1]
     n = params["A_log"].shape[1]
@@ -103,10 +105,8 @@ def apply_mamba(params, x, state=None):
     ssm0 = (torch.zeros((x.shape[0], d_inner, n), dtype=torch.float32,
                         device=x.device)
             if state is None else state["ssm"])
-    y_f, ssm_last = mamba_scan(
-        xc.float().contiguous(), delta.contiguous(),
-        b_.float().contiguous(), c_.float().contiguous(),
-        a_mat.float().contiguous(), ssm0.contiguous())
+    y_f, ssm_last = mamba_scan(xc, delta, b_, c_,
+                               a_mat.float().contiguous(), ssm0.contiguous())
     y = y_f.to(dt_)
     y = y + xc * params["D"].to(dt_)
     y = y * silu(z)

@@ -313,6 +313,46 @@ def test_flat_algorithm_batches_bit_equal_to_eager_jax(name):
             assert conv[key] == val and type(conv[key]) is type(val)
 
 
+@pytest.mark.parametrize("name", ["dana-zero", "lwp", "dana-nadam"])
+def test_unit_weight_sends_reuse_one_weights_tensor(name, monkeypatch):
+    """Repeated unit-weight sends pass the same weights tensor (made at
+    the first send, not allocated and filled at every send) and still
+    equal the JAX package's send."""
+    from repro_torch.kernels.flat_update import ops as tops
+    seen = []
+    real = tops.flat_send_view
+
+    def spy(theta, slab, w, c, u2=None, **kw):
+        seen.append(w)
+        return real(theta, slab, w, c, u2, **kw)
+
+    monkeypatch.setattr(tops, "flat_send_view", spy)
+    rng = np.random.default_rng(5)
+    params = {"w": rng.standard_normal((9, 7)).astype(np.float32),
+              "b": rng.standard_normal(7).astype(np.float32)}
+    jfa = JFlat(jmake(name, JHP(lr=0.05)), use_pallas=False)
+    tfa = FlatAlgorithm(make_algorithm(name, HyperParams(lr=0.05)))
+    with jax.disable_jit():
+        js = jfa.init(jax.tree.map(jnp.asarray, params), 3)
+        ts = tfa.adopt(tfa.algo.init(
+            jax.tree.map(torch.from_numpy, params), 3))
+        for step, i in enumerate((0, 2, 1, 0)):
+            g = rng.standard_normal((1, tfa.spec.rows, 128)) \
+                .astype(np.float32)
+            g[:, -1] = 0.0
+            js, _, _ = jfa.apply_batch(js, jnp.asarray([i], jnp.int32),
+                                       jnp.asarray(g),
+                                       jnp.asarray([step + 1.0],
+                                                   jnp.float32))
+            ts, _, _ = tfa.apply_batch(ts, [i], torch.from_numpy(g),
+                                       np.asarray([step + 1.0]))
+            jv, js = jfa.send_flat(js, jnp.int32(i))
+            tv, ts = tfa.send_flat(ts, i)
+            _bits_equal(tv, jv)
+    assert len(seen) == 4 and all(w is seen[0] for w in seen)
+    assert seen[0].dtype == torch.float32 and seen[0].tolist() == [1.0]
+
+
 def test_flat_eligibility_equals_the_jax_package():
     """Every registered member has a flat path, and the same members as
     in the JAX package build their send view with the send kernel."""

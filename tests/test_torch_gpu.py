@@ -6,13 +6,22 @@ neither JAX nor the JAX package, so it runs on a machine that has only
 PyTorch:
 
     python -m pytest -q -m gpu tests/test_torch_gpu.py
+
+The scan's cases cover each instance of its kernels (one or two
+channels a lane, N of 8 or 16, float32 or bf16 inputs as ``apply_mamba``
+passes them, strided B and C), and the plain staging path (D no
+multiple of 8); ``send_view`` is held bit for bit at N=1 and to 1e-5
+with rate weights.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import launches, reset_launches
+from repro_torch.kernels.flat_update.send import (flat_send_view,
+                                                  flat_send_view_ref)
 from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_ref
+from repro_torch.kernels.mamba_scan.kernel import layout_for
 from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_ref
 from repro_torch.kernels.swa_attention import (swa_attention,
                                                swa_attention_gqa)
@@ -39,9 +48,23 @@ def _scan_inputs(b, s, d, n, seed, device):
     return [torch.from_numpy(a).to(device) for a in arrs]
 
 
+def _proj_split(b, s, n, dtype, seed, device, dt_rank=24):
+    """B and C as ``apply_mamba`` passes them: column slices of one
+    (B, S, dt_rank + 2N) projection cut with ``torch.split``."""
+    rng = np.random.default_rng(seed)
+    proj = torch.from_numpy(rng.standard_normal(
+        (b, s, dt_rank + 2 * n)).astype(np.float32)).to(device, dtype)
+    return torch.split(proj, [dt_rank, n, n], dim=-1)[1:]
+
+
+# (1, 256, 8192, 16): the Engine's one-request prefill at its largest
+# bucket; (3, 50, 1000, 16): D no multiple of any group's block (32, 16
+# or 8 channels); (2, 40, 1002, 16): D no multiple of 8 (plain staging)
 @pytest.mark.parametrize("b,s,d,n", [(1, 8, 128, 16), (2, 32, 128, 16),
                                      (1, 16, 256, 8), (4, 1, 8192, 16),
-                                     (2, 77, 200, 16), (1, 130, 64, 8)])
+                                     (2, 77, 200, 16), (1, 130, 64, 8),
+                                     (1, 256, 8192, 16), (3, 50, 1004, 16),
+                                     (2, 40, 1002, 16)])
 def test_mamba_scan_kernel_matches_plain_version(cuda, b, s, d, n):
     """The state to 1e-6 (the same rounded operations), y to 1e-5 (the
     N-sum in another order); one launch per call."""
@@ -54,16 +77,161 @@ def test_mamba_scan_kernel_matches_plain_version(cuda, b, s, d, n):
     torch.testing.assert_close(last, rlast, rtol=1e-6, atol=1e-6)
 
 
+# B*D below and above the B*D from which a lane carries two channels:
+# (1, 256, 8192, 16) is the Engine's one-request prefill, (4, 40, 8192,
+# 16) falcon-mamba's prefill at a shorter prompt; D no multiple of the
+# block or of 8 at both
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,d,n,per_lane", [
+    (2, 37, 1000, 16, 1), (1, 20, 200, 8, 1), (2, 33, 1002, 16, 1),
+    (1, 256, 8192, 16, 1), (4, 40, 8192, 16, 2), (4, 18, 8200, 8, 2),
+    (5, 21, 8190, 16, 2)])
+def test_mamba_scan_kernel_each_instance_matches_plain_version(
+        cuda, dtype, b, s, d, n, per_lane):
+    """Each instance of the chunked kernel (one or two channels a lane,
+    picked by B*D; N of 8 or 16; float32 or bf16) on xc and B, C split
+    from a projection, as ``apply_mamba`` passes them, against the plain
+    version on the same inputs: the state bit for bit, y to 1e-5."""
+    assert layout_for(b, d) == (4, per_lane)
+    x, dl, _, _, a, h0 = _scan_inputs(b, s, d, n, per_lane + d, cuda)
+    bm, cm = _proj_split(b, s, n, dtype, s, cuda)
+    x = x.to(dtype)
+    reset_launches()
+    y, last = mamba_scan(x, dl, bm, cm, a, h0)
+    assert launches(["mamba_scan"]) == {"mamba_scan": 1}
+    ry, rlast = mamba_scan_ref(x, dl, bm, cm, a, h0)
+    torch.testing.assert_close(y, ry, rtol=1e-5, atol=1e-5)
+    assert torch.equal(last, rlast)
+
+
+@pytest.mark.parametrize("b,s,d", [(4, 1, 8192), (4, 64, 8192),
+                                   (2, 19, 1000)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_mamba_scan_kernel_takes_bf16_and_strided_inputs(cuda, b, s, d,
+                                                         dtype):
+    """xc and B, C column slices of a projection, all bf16 or all f32, as
+    ``apply_mamba`` passes them, against the plain version on the same
+    inputs (which widens them) and on contiguous float32 copies: the
+    state to 1e-6, y to 1e-5; one launch."""
+    n = 16
+    x, dl, _, _, a, h0 = _scan_inputs(b, s, d, n, s + d, cuda)
+    x = x.to(dtype)
+    bm, cm = _proj_split(b, s, n, dtype, d, cuda)
+    assert bm.stride(-1) == 1 and not bm.is_contiguous()
+    reset_launches()
+    y, last = mamba_scan(x, dl, bm, cm, a, h0)
+    assert launches(["mamba_scan"]) == {"mamba_scan": 1}
+    assert y.dtype == torch.float32
+    for ins in ((x, bm, cm), (x.float(), bm.float().contiguous(),
+                              cm.float().contiguous())):
+        ry, rlast = mamba_scan_ref(ins[0], dl, ins[1], ins[2], a, h0)
+        torch.testing.assert_close(y, ry, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(last, rlast, rtol=1e-6, atol=1e-6)
+
+
 def test_mamba_scan_kernel_refuses_what_it_does_not_take(cuda):
     x, dl, bm, cm, a, h0 = _scan_inputs(1, 4, 64, 16, 0, cuda)
     with pytest.raises(TypeError):
         mamba_scan(x.double(), dl, bm, cm, a, h0)
+    with pytest.raises(TypeError):
+        mamba_scan(x, dl.bfloat16(), bm, cm, a, h0)
+    with pytest.raises(TypeError):
+        mamba_scan(x, dl, bm.bfloat16(), cm, a, h0)      # b, c alike
+    with pytest.raises(TypeError):                       # x, b, c alike
+        mamba_scan(x.bfloat16(), dl, bm, cm, a, h0)
+    with pytest.raises(TypeError):
+        mamba_scan(x, dl, bm.bfloat16(), cm.bfloat16(), a, h0)
     with pytest.raises(ValueError, match="contiguous"):
         mamba_scan(x, dl, bm.transpose(1, 2).contiguous().transpose(1, 2),
                    cm, a, h0)
     x4, dl4, bm4, cm4, a4, h04 = _scan_inputs(1, 4, 64, 4, 0, cuda)
     with pytest.raises(ValueError, match="N in"):
         mamba_scan(x4, dl4, bm4, cm4, a4, h04)
+
+
+def test_mamba_scan_kernel_refuses_a_b_with_a_strided_last_axis(cuda):
+    """A column slice is taken (its last axis is contiguous); every
+    other column is not; nor are B and C of different strides, nor a
+    misaligned state."""
+    x, dl, _, _, a, h0 = _scan_inputs(2, 6, 64, 16, 0, cuda)
+    bm, cm = _proj_split(2, 6, 32, torch.float32, 0, cuda)
+    mamba_scan(x, dl, bm[..., :16], cm[..., :16], a, h0)
+    with pytest.raises(ValueError, match="contiguous"):
+        mamba_scan(x, dl, bm[..., ::2], cm[..., :16], a, h0)
+    with pytest.raises(ValueError, match="contiguous"):
+        mamba_scan(x, dl, bm[..., :16], cm[..., ::2], a, h0)
+    with pytest.raises(ValueError, match="same strides"):
+        mamba_scan(x, dl, bm[..., :16], cm[..., :16].contiguous(), a, h0)
+    flat = torch.empty(h0.numel() + 1, device=cuda)
+    shifted = flat[1:].view_as(h0).copy_(h0)
+    with pytest.raises(ValueError, match="aligned"):
+        mamba_scan(x, dl, bm[..., :16], cm[..., :16], a, shifted)
+
+
+# ---------------------------------------------------------------------------
+# send_view
+# ---------------------------------------------------------------------------
+def _send_inputs(r, n, adaptive, seed, device):
+    rng = np.random.default_rng(seed)
+    f = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(device)
+    w = (torch.ones(n, device=device) if n == 1 else
+         torch.from_numpy((rng.random(n) + 0.5).astype(np.float32))
+         .to(device))
+    return f(r, 128), f(n, r, 128), w, (f(r, 128).abs() * 0.01
+                                        if adaptive else None)
+
+
+@pytest.mark.parametrize("r", [1, 300, 4096])
+@pytest.mark.parametrize("adaptive", [False, True])
+def test_send_view_kernel_n1_is_bit_equal(cuda, r, adaptive):
+    """N=1 (every unit-weight send): the same rounded operations as the
+    plain version, bit for bit (IEEE sqrtf and division, -fmad=false);
+    one launch per call."""
+    theta, slab, w, u2 = _send_inputs(r, 1, adaptive, r, cuda)
+    c = np.float32(0.05) * np.float32(0.9)
+    reset_launches()
+    out = flat_send_view(theta, slab, w, c, u2)
+    assert launches(["send_view"]) == {"send_view": 1}
+    assert torch.equal(out, flat_send_view_ref(theta, slab, w, c, u2=u2))
+
+
+@pytest.mark.parametrize("adaptive", [False, True])
+def test_send_view_kernel_weighted_matches_plain_version(cuda, adaptive):
+    """N=4 rate weights: the N-way sum in another order than tensordot,
+    held to chip_smoke.py's WEIGHTED_TOL (1e-5)."""
+    theta, slab, w, u2 = _send_inputs(777, 4, adaptive, 3, cuda)
+    c = np.float32(0.05) * np.float32(0.9)
+    reset_launches()
+    out = flat_send_view(theta, slab, w, c, u2)
+    assert launches(["send_view"]) == {"send_view": 1}
+    torch.testing.assert_close(out, flat_send_view_ref(theta, slab, w, c,
+                                                       u2=u2),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_send_view_kernel_refuses_what_it_does_not_take(cuda):
+    theta, slab, w, u2 = _send_inputs(64, 2, True, 0, cuda)
+    reset_launches()
+    with pytest.raises(TypeError, match="float32"):
+        flat_send_view(theta.double(), slab, w, 1.0)
+    with pytest.raises(ValueError, match="shape"):
+        flat_send_view(theta, slab[:, :32], w, 1.0)
+    with pytest.raises(ValueError, match="shape"):
+        flat_send_view(theta, slab, w[:1], 1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        flat_send_view(theta, slab.transpose(1, 2).contiguous()
+                       .transpose(1, 2), w, 1.0)
+    with pytest.raises(ValueError, match="cpu"):
+        flat_send_view(theta, slab, w.cpu(), 1.0)
+    with pytest.raises(ValueError, match="shape"):
+        flat_send_view(theta, slab, w, 1.0, u2[:32])
+    flat = torch.empty(theta.numel() + 1, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        flat_send_view(flat[1:].view_as(theta), slab, w, 1.0)
+    with pytest.raises(ValueError, match="empty|shape"):
+        flat_send_view(theta[:0], slab[:, :0], w, 1.0)
+    assert launches(["send_view"]) == {"send_view": 0}
 
 
 # ---------------------------------------------------------------------------

@@ -8,6 +8,9 @@
   largest error measured is about 1e-6).
 * A scan split into two calls chained through the last state equals one
   call.
+* The inputs as ``apply_mamba`` passes them (bf16 xc, B and C split from
+  a bf16 or f32 projection, strided) give bit for bit what contiguous
+  float32 copies give, and the JAX reference's result.
 * On CPU tensors the wrapper takes the plain version and launches
   nothing; the CUDA-only kernel wrapper refuses CPU tensors (no
   fallback).  The kernel itself is checked against the plain version on
@@ -104,6 +107,37 @@ def test_any_length_and_width_on_the_plain_version():
         assert y.shape == (b, s, d) and last.shape == (b, d, 16)
         np.testing.assert_allclose(y.numpy(), np.asarray(ry), **TOL)
         np.testing.assert_allclose(last.numpy(), np.asarray(rlast), **TOL)
+
+
+@pytest.mark.parametrize("bc_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,s,d,n", [(2, 9, 128, 16), (1, 1, 64, 16),
+                                     (3, 20, 40, 8)])
+def test_plain_version_takes_inputs_as_apply_mamba_passes_them(b, s, d, n,
+                                                                bc_dtype):
+    """bf16 xc and B, C as ``torch.split`` views of a projection (last
+    axis contiguous, row stride dt_rank + 2N), the way ``apply_mamba``
+    hands them to the scan: bit for bit the plain version on contiguous
+    float32 copies (widening is exact), and the JAX reference on those
+    float32 inputs at the JAX package's tolerance."""
+    x, dl, _, _, a, h0 = _inputs(b, s, d, n, 11 * s + d)
+    rng = np.random.default_rng(d)
+    dt_rank = 8
+    proj = torch.from_numpy(rng.standard_normal(
+        (b, s, dt_rank + 2 * n)).astype(np.float32)).to(bc_dtype)
+    _, bm, cm = torch.split(proj, [dt_rank, n, n], dim=-1)
+    assert bm.stride() == (s * (dt_rank + 2 * n), dt_rank + 2 * n, 1)
+    xc = torch.from_numpy(x).bfloat16()
+    dl, a, h0 = map(torch.from_numpy, (dl, a, h0))
+    y, last = mamba_scan(xc, dl, bm, cm, a, h0)
+    assert y.dtype == torch.float32 and y.shape == (b, s, d)
+    f32 = (xc.float(), bm.float().contiguous(), cm.float().contiguous())
+    ry, rlast = mamba_scan(f32[0], dl, f32[1], f32[2], a, h0)
+    torch.testing.assert_close(y, ry, rtol=0, atol=0)
+    torch.testing.assert_close(last, rlast, rtol=0, atol=0)
+    jy, jlast = jref(*(jnp.asarray(t.numpy()) for t in
+                       (f32[0], dl, f32[1], f32[2], a, h0)))
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), **TOL)
+    np.testing.assert_allclose(last.numpy(), np.asarray(jlast), **TOL)
 
 
 def test_cpu_wrapper_launches_nothing_and_cuda_wrapper_refuses_cpu():
