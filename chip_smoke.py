@@ -46,8 +46,11 @@ Phases (one JSON line each):
               inputs at its paths' shapes and the other modes, with the
               tolerance stated; CUDA-event times (median of 20) beside
               the least time the card could take (bound) and the plain
-              version's time; gap_update also twice on the same inputs,
-              bit for bit; send_view in its three modes (N=1 bit for
+              version's time; gap_update twice on the same inputs, bit
+              for bit, at k=1, k=8 (repeats apart), k=2 of one worker
+              and k=8 with an adjacent pair, with its device time a call
+              and the bytes of its one-pass and the earlier two-pass
+              design; send_view in its three modes (N=1 bit for
               bit, rate-weighted and adaptive N=64) with each mode's
               device time from torch.profiler, and at N=1 in turns with
               torch.add; mamba_scan timed at the prefill shape (B=4,
@@ -61,8 +64,12 @@ Phases (one JSON line each):
               apply_mamba passes them (prefill and decode), and split
               in two calls chained through the last state;
               rglru_scan bit for bit at recurrentgemma-9b's prefill shape
-              (B=4, S=512, D=4096), at S=1, at S=77 with D=1000 and a
-              nonzero h0, and chained; swa_attention (bf16, the
+              (B=4, S=512, D=4096), the long prompt (1, 3072, 4096) and
+              a decode step (S=1), each timed with its device time and
+              bound (the decode call in turns with torch.addcmul), at
+              S=77 with D=1000 and a nonzero h0, at S=5 (shorter than a
+              stage) with D=1002, at S=1 with D=1001, and chained;
+              swa_attention (bf16, the
               tensor-core kernel, timed, with its device time from
               torch.profiler and its TFLOP/s; f32, the CUDA-core kernel,
               checked; 2e-5 f32, 3e-2 bf16) at (B=4, S=512, H=16, K=1,
@@ -161,6 +168,7 @@ BATCH = 256
 R_FULL = 197_000          # rows of the flat layout of DIMS (checked below)
 R_SMALL = 4_096
 IDS8 = [3, 17, 3, 40, 63, 17, 0, 3]
+IDS8_ADJACENT = [3, 17, 17, 40, 63, 5, 0, 3]
 REPS = 20
 ELEM_TOL = dict(rtol=1e-6, atol=1e-6)
 WEIGHTED_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -270,10 +278,12 @@ def time_pair(fn_a, fn_b, reps=4 * REPS):
     return float(np.median(times[0])), float(np.median(times[1]))
 
 
-def device_ms(fn, name, reps=REPS):
+def device_ms(fn, name, reps=REPS, per_call=False, count=False):
     """Device time (ms) per launch of the kernels whose names contain
-    ``name``, from torch.profiler's CUDA activity over ``reps`` calls
-    (after a warm-up call): the wrapper's host work left out."""
+    ``name`` (per call of ``fn`` with ``per_call``), from torch.profiler's
+    CUDA activity over ``reps`` calls (after a warm-up call): the
+    wrapper's host work left out.  With ``count``, also the number of
+    those kernels the profiler saw a call."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CUDA]
@@ -287,7 +297,9 @@ def device_ms(fn, name, reps=REPS):
             and name in a.key and a.self_device_time_total > 0]
     if not hits:
         raise AssertionError(f"the profiler saw no device time of {name}")
-    return sum(t for t, _ in hits) / 1e3 / sum(c for _, c in hits)
+    n = sum(c for _, c in hits)
+    ms = sum(t for t, _ in hits) / 1e3 / (reps if per_call else n)
+    return (ms, n / reps) if count else ms
 
 
 def max_err(a, b, tol, what, scale=None):
@@ -419,6 +431,9 @@ def check_batch(card, label, rows, n, ids, nesterov, use_v0, use_u2,
     if time_it:
         st = [ka[x] for x in names]
         rec["ms"] = time_ms(lambda: flat_update_batch(*st, *kargs, **kw))
+        rec["device_ms"] = device_ms(
+            lambda: flat_update_batch(*st, *kargs, **kw),
+            "flat_update_batch")
         pst = [pa[x] for x in names]
         rec["plain_ms"] = time_ms(lambda: flat_master_update_batch_ref(
             *pst, None, g, ids_np, lrs, None, gammas, cgs, vscales,
@@ -568,6 +583,9 @@ def check_dana(card, label, shapes, dtype, tol, seed, offset=0):
                                                     gamma)),
            "plain_ms": time_ms(lambda: [dana_master_update_ref(
                *xs, lr, gamma) for xs in zip(theta, v_i, v0, g)]),
+           "device_ms": device_ms(lambda: dana_master_update(
+               theta, v_i, v0, g, lr, gamma), "dana_", per_call=True),
+           "launches_a_call": len(shapes),
            "bytes": nbytes, "library_ms": None}
     rec["bound_ms"], rec["bound_by"] = card.bound(nbytes, 7 * n)
     emit(rec)
@@ -596,14 +614,20 @@ def phase_dana_update(card):
 def gap_bytes_ops(rows, ids, telemetry):
     """What k gap-aware messages must move, each input read once and each
     output written once: theta in/out, the u distinct v and sent rows
-    in/out, k gradients in, k hats (and k pre-thetas) out; and the
-    two-pass design's own traffic, which reads theta twice and the v and
-    sent rows once per message.  About 12 f32 operations per element per
-    message (3 in the gap norm, 9 in the update and its norm)."""
+    in/out, k gradients in, k hats (and k pre-thetas) out; the one-pass
+    design's own traffic (message 0's norm reads theta and its sent row;
+    each message reads theta, v_i and g_j and writes theta, v_i, sent_i
+    and the hat [and pre], and reads the next message's sent row unless
+    it is its own); and the earlier two-pass design's, which read theta
+    twice and the v and sent rows once per message.  About 12 f32
+    operations per element per message (3 in the gap norm, 9 in the
+    update and its norm)."""
     p, k, u = rows * 128, len(ids), len(set(ids))
+    adjacent = sum(a == b for a, b in zip(ids, ids[1:]))
     least = 4 * p * (2 + 4 * u + 2 * k + k * telemetry)
-    design = 4 * p * k * (2 + 7 + telemetry)
-    return least, design, 12 * p * k
+    one_pass = 4 * p * (2 + k * (7 + telemetry) + k - 1 - adjacent)
+    two_pass = 4 * p * k * (2 + 7 + telemetry)
+    return least, one_pass, two_pass, 12 * p * k
 
 
 def check_gap(card, label, rows, n, ids, seed):
@@ -661,26 +685,41 @@ def check_gap(card, label, rows, n, ids, seed):
         st[0], st[1], None, None, st[2], st[3], g, ids, scal[0], None,
         scal[1], scal[2], scal[3], nesterov=False, gap_aware=True,
         hat_mode="theta", **kw))
-    least, design, nops = gap_bytes_ops(rows, ids, True)
+    rec["device_ms"], rec["kernels_a_call"] = device_ms(
+        lambda: flat_update_batch_gap(*st, g, ids, *scal, **kw), "gap_",
+        per_call=True, count=True)
+    least, one_pass, two_pass, nops = gap_bytes_ops(rows, ids, True)
     rec["bytes"] = least
     rec["bound_ms"], rec["bound_by"] = card.bound(least, nops)
-    rec["two_pass_bytes"] = design
-    rec["two_pass_bound_ms"] = card.bound(design, nops)[0]
+    rec["one_pass_bytes"] = one_pass
+    rec["one_pass_bound_ms"] = card.bound(one_pass, nops)[0]
+    rec["two_pass_bytes"] = two_pass
+    rec["two_pass_bound_ms"] = card.bound(two_pass, nops)[0]
     rec["library_ms"] = None
     emit(rec)
     if not identical:
         raise AssertionError(f"gap_update {label}: two launches on the "
                              f"same inputs differ")
+    if rec["kernels_a_call"] != k + 2:
+        raise AssertionError(f"gap_update {label}: the profiler saw "
+                             f"{rec['kernels_a_call']} kernels a call, "
+                             f"expected k + 2 = {k + 2}")
     return rec
 
 
 def phase_gap_update(card):
-    recs = {"main": check_gap(card, "k=1 (main_path_ga)", R_FULL, WORKERS,
-                              [17], seed=31)}
-    torch.cuda.empty_cache()
-    recs["k8"] = check_gap(card, "k=8 duplicate ids (cluster_ga_free)",
-                           R_FULL, WORKERS, IDS8, seed=32)
-    torch.cuda.empty_cache()
+    """k=1 (the engine's messages), k=8 with repeats apart (the free
+    cluster's coalesced batches), k=2 of one worker and k=8 with an
+    adjacent pair (the next message's gap taken as exactly 0)."""
+    recs = {}
+    for key, label, ids, seed in (
+            ("main", "k=1 (main_path_ga)", [17], 31),
+            ("k8", "k=8 duplicate ids (cluster_ga_free)", IDS8, 32),
+            ("k2_adjacent", "k=2 one worker [5, 5]", [5, 5], 33),
+            ("k8_adjacent", "k=8 with an adjacent pair", IDS8_ADJACENT,
+             34)):
+        recs[key] = check_gap(card, label, R_FULL, WORKERS, ids, seed=seed)
+        torch.cuda.empty_cache()
     return recs
 
 
@@ -1148,7 +1187,9 @@ def rglru_inputs(b, s, d, seed, zero_h0=False):
 
 def check_rglru(card, label, b, s, d, seed, zero_h0=False, time_it=False):
     """Kernel against the plain version, bit for bit (the product and the
-    sum round separately on both sides)."""
+    sum round separately on both sides).  Timed: the call (at S=1 in
+    turns with torch.addcmul, the one PyTorch call that computes a step),
+    its device time and its bound."""
     from repro_torch.kernels.rglru_scan import rglru_scan_ref
     from repro_torch.kernels.rglru_scan.kernel import rglru_scan_cuda
     a, x, h0 = rglru_inputs(b, s, d, seed, zero_h0)
@@ -1164,11 +1205,25 @@ def check_rglru(card, label, b, s, d, seed, zero_h0=False, time_it=False):
                              and torch.equal(last, rlast)),
            "tolerance": EXACT}
     if time_it:
-        rec["ms"] = time_ms(lambda: rglru_scan_cuda(a, x, h0))
+        def call():
+            return rglru_scan_cuda(a, x, h0)
+        rec["library_ms"] = None
+        if s == 1:
+            hv = h0[:, None]
+
+            def addcmul():
+                return torch.addcmul(x, a, hv)
+            rec["ms"], rec["library_ms"] = time_pair(call, addcmul)
+            rec["library"] = "torch.addcmul(x, a, h), in turns"
+            rec["library_device_ms"] = device_ms(addcmul, "")
+        else:
+            rec["ms"] = time_ms(call)
+        rec["device_ms"] = device_ms(call, "rglru")
         rec["plain_ms"] = time_ms(lambda: rglru_scan_ref(a, x, h0))
         nbytes, nops = 4 * (3 * b * s * d + 2 * b * d), 2 * b * s * d
-        rec.update(bytes=nbytes, flops=nops, library_ms=None)
+        rec.update(bytes=nbytes, flops=nops)
         rec["bound_ms"], rec["bound_by"] = card.bound(nbytes, nops)
+        rec["device_share_of_bound"] = rec["bound_ms"] / rec["device_ms"]
     emit(rec)
     return rec
 
@@ -1195,17 +1250,28 @@ def check_rglru_chained(b, s, d, split, seed):
 
 
 def phase_rglru_scan(card):
-    """recurrentgemma-9b's prefill shape (zero h0) and a decode step,
-    timed; an odd S with a D that is no multiple of the block and a
-    nonzero h0; a chained pair."""
+    """Timed: recurrentgemma-9b's prefill shape and the long prompt (zero
+    h0, as the model's prefill) and a decode step.  Checked bit for bit:
+    S shorter than a stage (16 timesteps) with D not a multiple of 4 (one
+    float a lane staged), an odd S with a D that is no multiple of the
+    32-channel tile and a nonzero h0, a decode step with D not a multiple
+    of 4, a chained pair split inside a stage."""
     recs = {"main": check_rglru(card, "prefill B=4 S=512 D=4096 "
                                 "(serve_generate_rg)", SERVE_BATCH,
                                 SERVE_PROMPT, 4096, 51, zero_h0=True,
+                                time_it=True),
+            "long": check_rglru(card, "long prompt B=1 S=3072 D=4096 "
+                                "(serve_generate_rg_long)", RG_LONG_BATCH,
+                                RG_LONG_PROMPT, 4096, 55, zero_h0=True,
                                 time_it=True),
             "decode": check_rglru(card, "decode S=1", SERVE_BATCH, 1, 4096,
                                   52, time_it=True)}
     check_rglru(card, "odd S=77, D=1000 (masked edge), nonzero h0",
                 SERVE_BATCH, 77, 1000, 53)
+    check_rglru(card, "S=5 (shorter than a stage), D=1002 (one float a "
+                "lane)", 2, 5, 1002, 56)
+    check_rglru(card, "decode S=1, D=1001 (one float a thread)", 3, 1,
+                1001, 57)
     check_rglru_chained(SERVE_BATCH, SERVE_PROMPT, 4096, 200, 54)
     torch.cuda.empty_cache()
     return recs
@@ -1671,7 +1737,11 @@ def main():
             ("rglru_scan", rs["main"], "serve_generate_rg", RGLRU_SRC,
              "src/repro/kernels/rglru_scan/kernel.py:42"),
             ("swa_attention", sw["main"], "serve_generate_rg", SWA_SRC,
-             "src/repro/kernels/swa_attention/kernel.py:76")):
+             "src/repro/kernels/swa_attention/kernel.py:76"),
+            # the scalar-prefetch lowering: the free cluster's coalesced
+            # k=8 batches, the case it was written for
+            ("flat_update_batch", fu["cluster"], "cluster_free", SRC,
+             "src/repro/kernels/flat_update/kernel.py:497")):
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
@@ -1683,10 +1753,18 @@ def main():
             "launches_by_path": {p: r["launches"].get(name, 0)
                                  for p, r in paths.items()}})
     kernels[0]["also_replaces"] = "src/repro/kernels/flat_update/kernel.py:497"
-    for key in ("ms", "bound_ms", "plain_ms", "max_abs_err"):
+    for key in ("ms", "device_ms", "bound_ms", "plain_ms", "max_abs_err"):
         kernels[0][f"{key}_k8_cluster_wire"] = fu["cluster"][key]
         kernels[3][f"{key}_k8"] = gu["k8"][key]
+        kernels[3][f"{key}_k8_adjacent"] = gu["k8_adjacent"][key]
+        kernels[3][f"{key}_k2_adjacent"] = gu["k2_adjacent"][key]
+    kernels[0]["device_ms"] = fu["main"]["device_ms"]
+    kernels[2]["device_ms"] = du["main"]["device_ms"]
     kernels[3]["also_replaces"] = "src/repro/kernels/flat_update/kernel.py:828"
+    for key in ("device_ms", "kernels_a_call", "bit_identical_on_relaunch"):
+        kernels[3][key] = gu["main"][key]
+        kernels[3][f"{key}_k8"] = gu["k8"][key]
+    kernels[7]["device_ms"] = fu["cluster"]["device_ms"]
     for key in ("device_ms", "bound_ms", "device_share_of_bound"):
         kernels[1][key] = sv["main"][key]
         for mode in ("weighted", "adaptive"):
@@ -1705,8 +1783,16 @@ def main():
         kernels[4][key] = ms["main"][key]
     for key in ("bf16_prefill", "bf16_decode"):
         kernels[4][f"max_abs_err_{key}"] = ms[key]["max_abs_err"]
-    for key in ("ms", "bound_ms", "plain_ms", "max_abs_err", "bound_by"):
+    for key in ("ms", "device_ms", "bound_ms", "plain_ms", "max_abs_err",
+                "bound_by", "library_ms", "device_share_of_bound",
+                "bit_equal"):
         kernels[5][f"{key}_decode_S1"] = rs["decode"][key]
+        kernels[5][f"{key}_long_S3072"] = rs["long"][key]
+    kernels[5]["library_decode_S1"] = rs["decode"]["library"]
+    kernels[5]["library_device_ms_decode_S1"] = \
+        rs["decode"]["library_device_ms"]
+    for key in ("device_ms", "device_share_of_bound", "bit_equal"):
+        kernels[5][key] = rs["main"][key]
     for key in ("ms", "bound_ms", "plain_ms", "library_ms", "max_abs_err",
                 "bound_by", "device_ms", "tflops", "device_tflops"):
         kernels[6][f"{key}_long_S3072"] = sw["long"][key]

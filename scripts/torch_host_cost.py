@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the host work of the ``send_view`` and ``mamba_scan`` wrappers,
-piece by piece, and the two kernels' device times at their paths' shapes.
+"""Time the host work of the ``send_view``, ``mamba_scan`` and
+``rglru_scan`` wrappers, piece by piece, and the kernels' device times at
+their paths' shapes (with ``gap_update``'s).
 
     python3 scripts/torch_host_cost.py [--calls 10000] [--no-device]
                                        [--src DIR]
@@ -30,8 +31,12 @@ checks, no allocation) each timed in turns with ``torch.add``
 (``chip_smoke.time_pair``), which splits the call's time between the
 launch and the wrapper's Python work; at both prefill shapes the
 chunked kernel's device time with one and with two channels a lane,
-launched through the C entry point (the wrapper picks one by B*D).  One
-JSON line per section; exits 2 without a card.
+launched through the C entry point (the wrapper picks one by B*D).
+``rglru_scan`` at prefill (4, 512, 4096), the long prompt (1, 3072,
+4096) and decode (4, 1, 4096), the decode call in turns with
+``torch.addcmul``; ``gap_update`` at k=1 and k=8 (R=197,000, N=64), its
+device time a call.  One JSON line per section; exits 2 without a
+card.
 
 ``--src DIR`` times the wrappers of another checkout's ``src`` (an
 earlier commit's, unpacked with ``git archive``) with this script's
@@ -134,9 +139,28 @@ def host_pieces(calls):
     }
     if hasattr(mk, "_scan_checks"):
         ms["checks"] = lambda: mk._scan_checks(x, dl, bm, cm, a, h0)
+    # rglru_scan at recurrentgemma-9b's decode shape
+    from repro_torch.kernels.rglru_scan import kernel as rk
+    ra, rx, rh = (torch.sigmoid(randn(4, 1, 4096)), randn(4, 1, 4096),
+                  randn(4, 4096))
+    rlib = rk.LIB.load()
+    ro, rl = torch.empty_like(ra), torch.empty_like(rh)
+    rptrs = [t.data_ptr() for t in (ra, rx, rh, ro, rl)]
+    rargs = ((*rptrs, 4, 1, 4096, 1) if len(rlib.rglru_scan.argtypes) == 10
+             else (*rptrs, 4, 1, 4096))   # the earlier entry point
+    rhv = rh[:, None]
+    rs = {
+        "empty_like_x2": lambda: (torch.empty_like(ra),
+                                  torch.empty_like(rh)),
+        "ctypes_call": lambda: rlib.rglru_scan(*rargs, stream),
+        "whole_call": lambda: rk.rglru_scan_cuda(ra, rx, rh),
+        "torch_addcmul": lambda: torch.addcmul(rx, ra, rhv),
+    }
+    if hasattr(rk, "_scan_checks"):
+        rs["checks"] = lambda: rk._scan_checks(ra, rx, rh)
     res = {}
     for group, pieces in (("send_view", sv), ("mamba_scan", ms),
-                          ("common", common)):
+                          ("rglru_scan", rs), ("common", common)):
         res[group] = {k: per_call_us(f, calls) for k, f in pieces.items()}
     return res
 
@@ -222,7 +246,71 @@ def device_times(card):
                     lambda: _scan_entry(args, per_lane), "mamba_scan")
                 for per_lane in (1, 2)}
         out["mamba_scan"].append(rec)
+    out["rglru_scan"] = rglru_times(card)
+    out["gap_update"] = gap_times(card)
     return out
+
+
+def rglru_times(card):
+    """rglru_scan at recurrentgemma-9b's prefill (4, 512), the long
+    prompt (1, 3072) and decode (4, 1), D=4096: the call, its device
+    time and bound; at decode in turns with torch.addcmul."""
+    from repro_torch.kernels.rglru_scan.kernel import rglru_scan_cuda
+    recs = []
+    for label, (b, s) in (("prefill", (4, 512)), ("long prompt", (1, 3072)),
+                          ("decode", (4, 1))):
+        a, x, h0 = chip_smoke.rglru_inputs(b, s, 4096, 51, zero_h0=s > 1)
+
+        def call():
+            return rglru_scan_cuda(a, x, h0)
+        nbytes = 4 * (3 * b * s * 4096 + 2 * b * 4096)
+        bound, by = card.bound(nbytes, 2 * b * s * 4096)
+        rec = {"shape": label, "B": b, "S": s, "D": 4096,
+               "ms": chip_smoke.time_ms(call),
+               "device_ms": chip_smoke.device_ms(call, "rglru"),
+               "bound_ms": bound, "bound_by": by}
+        if s == 1:
+            hv = h0[:, None]
+            rec["in_turns_ms"] = dict(zip(
+                ("wrapper", "torch_addcmul"), chip_smoke.time_pair(
+                    call, lambda: torch.addcmul(x, a, hv))))
+        recs.append(rec)
+    return recs
+
+
+def gap_times(card):
+    """gap_update at R=197,000, N=64, telemetry on, k=1 and k=8 (chip_smoke's
+    IDS8): the call and its device time a call (every kernel it runs)."""
+    from repro_torch.kernels.flat_update.kernel import flat_update_batch_gap
+    r, n = chip_smoke.R_FULL, chip_smoke.WORKERS
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    theta = torch.randn((r, 128), generator=gen, device="cuda")
+    v = torch.randn((n, r, 128), generator=gen, device="cuda") * 0.1
+    sent = theta + 0.01 * torch.randn((n, r, 128), generator=gen,
+                                      device="cuda")
+    avg = torch.full((), 1e-3, device="cuda")
+    recs = []
+    for ids in ([17], chip_smoke.IDS8):
+        k = len(ids)
+        g = torch.randn((k, r, 128), generator=gen, device="cuda")
+        scal = (np.full(k, 0.05, np.float32), np.full(k, 0.9, np.float32),
+                np.ones(k, np.float32), np.ones(k, np.float32))
+
+        def call():
+            return flat_update_batch_gap(theta, v, sent, avg, g, ids, *scal,
+                                         gap_ema=0.99, n_elems=r * 128,
+                                         telemetry=True)
+        least, one_pass, two_pass, nops = chip_smoke.gap_bytes_ops(
+            r, ids, True)
+        recs.append({"k": k, "ids": ids, "ms": chip_smoke.time_ms(call),
+                     "device_ms": chip_smoke.device_ms(call, "gap_",
+                                                       per_call=True),
+                     "bound_ms": card.bound(least, nops)[0],
+                     "one_pass_bound_ms": card.bound(one_pass, nops)[0],
+                     "two_pass_bound_ms": card.bound(two_pass, nops)[0]})
+        del g
+        torch.cuda.empty_cache()
+    return recs
 
 
 def _scan_entry(args, per_lane):

@@ -26,18 +26,16 @@ memory rate in all three of its modes; its call is mostly host work at
 N=1.  So the wrapper takes the lean launch path: the checks (device,
 float32, shapes, contiguity, 16-byte alignment) in one pass, the output
 allocated, ``_build.launch`` (the current stream's raw handle, no device
-context on the current device), the counter.  A failed check reruns the
-per-tensor ``_check`` to name the tensor at fault.
+context on the current device), the counter.  The checks are
+``kernel._check_all``'s, which name the tensor at fault.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build
-from .kernel import _check
+from .kernel import _check_all
 from ...core.types import sqrt_rn
-
-_F32 = torch.float32
 
 
 def flat_send_view_ref(theta, slab, w, c, u2=None, eps: float = 1e-8):
@@ -49,28 +47,8 @@ def flat_send_view_ref(theta, slab, w, c, u2=None, eps: float = 1e-8):
 
 
 def _send_checks(theta, slab, w, u2):
-    """One pass over the inputs; returns (R, N) or raises."""
-    try:
-        shape = theta.shape
-        r, n = shape[0], slab.shape[0]
-        idx = theta.get_device()
-        ok = (len(shape) == 2 and shape[1] == 128 and slab.dim() == 3
-              and slab.shape[1] == r and slab.shape[2] == 128
-              and w.dim() == 1 and w.shape[0] == n and r >= 1 and n >= 1
-              and slab.get_device() == idx and w.get_device() == idx
-              and theta.dtype is _F32 and slab.dtype is _F32
-              and w.dtype is _F32 and theta.is_contiguous()
-              and slab.is_contiguous() and w.is_contiguous()
-              and not (theta.data_ptr() | slab.data_ptr() | w.data_ptr())
-              % 16)
-        if ok and u2 is not None:
-            ok = (u2.shape == shape and u2.get_device() == idx
-                  and u2.dtype is _F32 and u2.is_contiguous()
-                  and not u2.data_ptr() % 16)
-    except (AttributeError, IndexError):
-        ok = False
-    if ok:
-        return r, n
+    """One pass over the inputs; returns (R, N) or raises the first
+    fault."""
     if not (isinstance(theta, torch.Tensor) and theta.dim() == 2
             and isinstance(slab, torch.Tensor) and slab.dim() == 3):
         raise ValueError(f"theta must be (R, 128) and slab (N, R, 128), "
@@ -79,13 +57,12 @@ def _send_checks(theta, slab, w, u2):
     r, n = theta.shape[0], slab.shape[0]
     if r < 1 or n < 1:
         raise ValueError(f"empty view: R={r}, N={n}")
-    dev = theta.device
-    _check("theta", theta, (r, 128), dev)
-    _check("slab", slab, (n, r, 128), dev)
-    _check("w", w, (n,), dev)
+    named = [("theta", theta, (r, 128)), ("slab", slab, (n, r, 128)),
+             ("w", w, (n,))]
     if u2 is not None:
-        _check("u2", u2, (r, 128), dev)
-    raise AssertionError("unreachable: a failed check names its tensor")
+        named.append(("u2", u2, (r, 128)))
+    _check_all(named, theta.device)
+    return r, n
 
 
 def _send_view_cuda(theta, slab, w, c, u2, eps):

@@ -26,6 +26,7 @@ from repro.kernels.flat_update.kernel import flat_master_update_batch_gap
 from repro.kernels.flat_update.ref import (
     flat_master_update_batch_ref as jref)
 
+from repro_torch.core.types import sqrt_rn
 from repro_torch.kernels import launches, reset_launches
 from repro_torch.kernels.flat_update import flat_master_update_batch
 from repro_torch.kernels.flat_update.kernel import flat_update_batch_gap
@@ -70,12 +71,20 @@ def _close(a, b, what):
                                err_msg=what)
 
 
-@pytest.mark.parametrize("k", [1, 4])
-def test_plain_gap_update_matches_eager_jax_reference(k):
+# ids of each batch: one message; four with a repeat apart; four with
+# adjacent repeats (worker 1 twice in a row: the second message's gap is
+# exactly 0)
+IDS = {"1": [0], "4": [0, 2, 0, 1], "4-adjacent": [1, 1, 0, 1]}
+
+
+@pytest.mark.parametrize("case", IDS)
+def test_plain_gap_update_matches_eager_jax_reference(case):
+    ids = np.asarray(IDS[case])
+    k = len(ids)
     r, n = 24, 3
     n_elems = r * 128 - 77                  # padding must not dilute G
-    ins, scal = _inputs(r, n, k, seed=k, n_elems=n_elems)
-    ids = np.asarray([0, 2, 0, 1][:k])
+    ins, scal = _inputs(r, n, k, seed=k + 2 * case.endswith("adjacent"),
+                        n_elems=n_elems)
     port = _port(ins, scal, ids, n_elems)
     J = jnp.asarray
     with jax.disable_jit():
@@ -95,11 +104,12 @@ def test_plain_gap_update_matches_eager_jax_reference(k):
         _close(a, b, name)
 
 
-@pytest.mark.parametrize("k", [1, 4])
-def test_plain_gap_update_matches_pallas_interpret(k):
+@pytest.mark.parametrize("case", IDS)
+def test_plain_gap_update_matches_pallas_interpret(case):
+    ids = np.asarray(IDS[case])
+    k = len(ids)
     r, n = 512, 3                     # two row tiles: the grid really sweeps
-    ins, scal = _inputs(r, n, k, seed=10 + k)
-    ids = np.asarray([0, 2, 0, 1][:k])
+    ins, scal = _inputs(r, n, k, seed=10 + k + 2 * case.endswith("adjacent"))
     port = _port(ins, scal, ids, r * 128)
     J = jnp.asarray
     outk = flat_master_update_batch_gap(
@@ -183,3 +193,148 @@ def test_cpu_dispatch_runs_the_plain_version_and_launches_nothing():
             scal["cgs"], scal["vscales"], None, nesterov=False,
             hat_mode="theta", avg_step=avg, gap_aware=True, n_elems=1024)
     assert launches()["gap_update"] == 0
+
+
+# ---------------------------------------------------------------------------
+# A model of the CUDA kernels' launch order (csrc/gap_update.cu), run here
+# where there is no card: the same per-thread grid-stride sums, warp and
+# block trees and fixed-order partial sums, the next message's norm taken
+# in the pass that writes theta', and avg_step kept in ping-pong slots.
+# ---------------------------------------------------------------------------
+THREADS, MAX_BLOCKS = 256, 1024          # kThreads, kMaxBlocks
+
+
+def _tree32(x):
+    """A warp's shuffle-down tree over its last axis of 32 lanes: lane 0's
+    value."""
+    x = x.clone()
+    for o in (16, 8, 4, 2, 1):
+        x[..., :o] = x[..., :o] + x[..., o:2 * o]
+    return x[..., 0]
+
+
+def _block_sum(x):
+    """block_sum over (..., 256) per-thread values: each warp's tree, then
+    warp 0's tree over the 8 warp sums (its other lanes 0)."""
+    warps = _tree32(x.reshape(*x.shape[:-1], THREADS // 32, 32))
+    lanes = torch.zeros(*x.shape[:-1], 32)
+    lanes[..., :THREADS // 32] = warps
+    return _tree32(lanes)
+
+
+def _partials(terms4, nblocks):
+    """The G block partials of per-float4 terms (e4, 4): each thread adds
+    its float4s' four terms in a grid-stride loop, then block_sum."""
+    t = nblocks * THREADS
+    acc = torch.zeros(t)
+    for lo in range(0, terms4.shape[0], t):
+        chunk = terms4[lo:lo + t]
+        for c in range(4):
+            acc[:chunk.shape[0]] = acc[:chunk.shape[0]] + chunk[:, c]
+    return _block_sum(acc.reshape(nblocks, THREADS))
+
+
+def _sum_partials(partial):
+    """sum_partials: thread t adds partial[t], partial[t + 256], ... in
+    order, then block_sum."""
+    acc = torch.zeros(THREADS)
+    for lo in range(0, partial.shape[0], THREADS):
+        chunk = partial[lo:lo + THREADS]
+        acc[:chunk.shape[0]] = acc[:chunk.shape[0]] + chunk
+    return _block_sum(acc)
+
+
+def _kernel_model(ins, scal, ids, n_elems, *, fused):
+    """theta, v, sent, avg_step, hats, pres as the k + 2 launches compute
+    them (``fused``), or as the earlier two-pass order did (3k launches:
+    each message's norm read back from memory, avg_step finished at once
+    after each message)."""
+    T = lambda a: torch.from_numpy(np.array(a, copy=True))
+    theta, v, sent = T(ins["theta"]), T(ins["v"]), T(ins["sent"])
+    g = T(ins["g"])
+    r, k = theta.shape[0], len(ids)
+    e4 = r * 32
+    nblocks = min((e4 + THREADS - 1) // THREADS, MAX_BLOCKS)
+    f32 = lambda x: torch.tensor(np.float32(x))
+    sqrt_p = f32(np.sqrt(np.float32(n_elems), dtype=np.float32))
+    ema, ome = f32(EMA), f32(1 - EMA)
+    lrs, gammas, cgs, vss = (scal[x] for x in ("lrs", "gammas", "cgs",
+                                               "vscales"))
+    q4 = lambda x: x.reshape(-1, 4)
+
+    def next_avg(step, avg, j):
+        rms = ((f32(lrs[j]) * f32(vss[j])) * sqrt_rn(_sum_partials(step))) \
+            / sqrt_p
+        return ema * avg + ome * rms
+
+    avg0 = f32(ins["avg"])
+    norm, step, slot = [None, None], [None, None], [None, None]
+    norm[0] = _partials(q4(theta - sent[ids[0]]) ** 2, nblocks)
+    avg = avg0
+    hats, pres = [], []
+    for j in range(k):
+        i = ids[j]
+        if fused:
+            gap = sqrt_rn(_sum_partials(norm[j % 2])) / sqrt_p
+            avg = avg0 if j <= 1 else slot[(j - 1) % 2]
+            if j:
+                avg = next_avg(step[(j - 1) % 2], avg, j - 1)
+                slot[j % 2] = avg
+        else:
+            d = q4(theta - sent[i])
+            gap = sqrt_rn(_sum_partials(_partials(d * d, nblocks))) / sqrt_p
+        penalty = 1.0 + gap / torch.clamp(avg, min=1e-12)
+        inv, inv_vs = 1.0 / penalty, 1.0 / f32(vss[j])
+        vn = f32(gammas[j]) * v[i] + f32(cgs[j]) * (inv_vs * (inv * g[j]))
+        pres.append(theta.clone())
+        theta = ((-f32(lrs[j])) * f32(vss[j])) * vn + theta
+        step[j % 2] = _partials(q4(vn * vn), nblocks)
+        if fused and j + 1 < k:
+            nxt = ids[j + 1]
+            d = q4(theta - (theta if nxt == i else sent[nxt]))
+            norm[(j + 1) % 2] = _partials(d * d, nblocks)
+        v[i], sent[i] = vn, theta
+        hats.append(theta)
+        if not fused:
+            avg = next_avg(step[j % 2], avg, j)
+    if fused:
+        avg = next_avg(step[(k - 1) % 2], avg0 if k <= 1
+                       else slot[(k - 1) % 2], k - 1)
+    return theta, v, sent, avg, torch.stack(hats), torch.stack(pres)
+
+
+# R = 8320: 266,240 float4s, so the 1,024-block grid strides twice and the
+# second sweep is ragged
+KERNEL_IDS = {"1": [2], "2-adjacent": [1, 1], "4": [0, 2, 0, 1],
+              "4-adjacent": [1, 1, 0, 1]}
+
+
+@pytest.mark.parametrize("case", KERNEL_IDS)
+def test_kernel_launch_order_model_matches_plain_version(case):
+    """The k + 2 launches' arithmetic, modelled in its fixed summation
+    order, within GAP_TOL of the plain version (torch.sum's order)."""
+    ids = KERNEL_IDS[case]
+    r, n, n_elems = 8320, 3, 8320 * 128 - 77
+    ins, scal = _inputs(r, n, len(ids), seed=20 + len(ids), n_elems=n_elems)
+    model = _kernel_model(ins, scal, ids, n_elems, fused=True)
+    port = _port(ins, scal, ids, n_elems)
+    plain = (port[0], port[1], port[4], port[5], torch.stack(port[6]),
+             port[7])
+    for name, a, b in zip(("theta", "v", "sent", "avg_step", "hats",
+                           "pres"), model, plain):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
+                                   atol=1e-6, err_msg=name)
+
+
+@pytest.mark.parametrize("case", KERNEL_IDS)
+def test_kernel_launch_order_equals_two_pass_order_bit_for_bit(case):
+    """Folding message j+1's norm into message j's pass and avg_step into
+    the next launch changes no sum's order: the results are bit for bit
+    the two-pass design's (the CUDA source's claim)."""
+    ids = KERNEL_IDS[case]
+    r, n = 8320, 3
+    ins, scal = _inputs(r, n, len(ids), seed=30 + len(ids))
+    fused = _kernel_model(ins, scal, ids, r * 128, fused=True)
+    two_pass = _kernel_model(ins, scal, ids, r * 128, fused=False)
+    for a, b in zip(fused, two_pass):
+        assert torch.equal(a, b)

@@ -11,7 +11,9 @@ The scan's cases cover each instance of its kernels (one or two
 channels a lane, N of 8 or 16, float32 or bf16 inputs as ``apply_mamba``
 passes them, strided B and C), and the plain staging path (D no
 multiple of 8); ``send_view`` is held bit for bit at N=1 and to 1e-5
-with rate weights.
+with rate weights; ``rglru_scan`` bit for bit at every staging edge and
+at decode; ``gap_update`` bit for bit on relaunch and to GAP_TOL at k =
+1, 2 and 8, with repeated workers adjacent and apart.
 """
 import numpy as np
 import pytest
@@ -23,6 +25,7 @@ from repro_torch.kernels.flat_update.send import (flat_send_view,
 from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_ref
 from repro_torch.kernels.mamba_scan.kernel import layout_for
 from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_ref
+from repro_torch.kernels.rglru_scan.kernel import rglru_scan_cuda
 from repro_torch.kernels.swa_attention import (swa_attention,
                                                swa_attention_gqa)
 
@@ -245,9 +248,18 @@ def _rglru_inputs(b, s, d, seed, device):
             for x in arrs]
 
 
+# The staged scan takes 32 timesteps a stage, 4 stages in its ring and
+# 32 channels a block: (1, 3072, 4096) the long prompt (B=1, long S, the
+# ring wraps 24 times); (2, 5, 4096) S shorter than a stage; (2, 77,
+# 1000) and (1, 130, 33) S not a multiple of a stage and D not a multiple
+# of the 32-channel tile; (2, 40, 1002) and (1, 130, 33) D not a multiple
+# of 4 (one float a thread staged); (4, 1, 4096) and (3, 1, 1001) a
+# decode step through the step kernel, float4 and one float a thread
 @pytest.mark.parametrize("b,s,d", [(1, 8, 128), (2, 64, 128), (2, 32, 256),
                                    (4, 1, 4096), (2, 77, 1000),
-                                   (1, 130, 33)])
+                                   (1, 130, 33), (1, 3072, 4096),
+                                   (2, 5, 4096), (2, 40, 1002),
+                                   (3, 1, 1001), (4, 512, 4096)])
 def test_rglru_scan_kernel_equals_plain_version_bit_for_bit(cuda, b, s, d):
     """The product and the sum round separately on both sides
     (-fmad=false): every state is bit-equal; one launch per call."""
@@ -257,6 +269,12 @@ def test_rglru_scan_kernel_equals_plain_version_bit_for_bit(cuda, b, s, d):
     assert launches(["rglru_scan"]) == {"rglru_scan": 1}
     rout, rlast = rglru_scan_ref(a, x, h0)
     assert torch.equal(out, rout) and torch.equal(last, rlast)
+
+
+def test_rglru_scan_kernel_takes_an_empty_sequence(cuda):
+    a, x, h0 = _rglru_inputs(2, 0, 64, 1, cuda)
+    out, last = rglru_scan(a, x, h0)
+    assert out.shape == (2, 0, 64) and torch.equal(last, h0)
 
 
 def test_rglru_scan_kernel_chains_bit_for_bit(cuda):
@@ -271,6 +289,7 @@ def test_rglru_scan_kernel_chains_bit_for_bit(cuda):
 
 def test_rglru_scan_kernel_refuses_what_it_does_not_take(cuda):
     a, x, h0 = _rglru_inputs(1, 4, 64, 0, cuda)
+    reset_launches()
     with pytest.raises(TypeError):
         rglru_scan(a.bfloat16(), x, h0)
     with pytest.raises(TypeError):
@@ -279,6 +298,114 @@ def test_rglru_scan_kernel_refuses_what_it_does_not_take(cuda):
         rglru_scan(a, x.transpose(1, 2).contiguous().transpose(1, 2), h0)
     with pytest.raises(ValueError, match="shape"):
         rglru_scan(a, x, h0[:, :32])
+    with pytest.raises(ValueError, match="shape"):
+        rglru_scan(a, x[:, :2].contiguous(), h0)
+    with pytest.raises(ValueError, match="CUDA"):
+        rglru_scan_cuda(a.cpu(), x.cpu(), h0.cpu())
+    with pytest.raises(ValueError, match="rows"):
+        big = torch.empty((65536, 1, 1), device=cuda)
+        rglru_scan(big, big, big[:, 0])
+    assert launches(["rglru_scan"]) == {"rglru_scan": 0}
+
+
+# ---------------------------------------------------------------------------
+# gap_update and the flat_update_batch wrapper
+# ---------------------------------------------------------------------------
+# the norms are sums over every element, taken in another order than
+# torch.sum's (chip_smoke.GAP_TOL)
+GAP_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def _gap_inputs(r, n, k, seed, device):
+    rng = np.random.default_rng(seed)
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(device)
+    theta = randn(r, 128)
+    state = (theta, randn(n, r, 128) * 0.1,
+             theta + 0.01 * randn(n, r, 128),
+             torch.full((), 1e-3, device=device))
+    scal = (np.linspace(0.05, 0.04, k).astype(np.float32),
+            np.full(k, 0.9, np.float32), np.ones(k, np.float32),
+            np.linspace(1.0, 0.9, k).astype(np.float32))
+    return state, randn(k, r, 128), scal
+
+
+# R=2048: 256 blocks; R=9000: 1,024 blocks striding twice, the second
+# sweep ragged.  Adjacent repeats ([5, 5], [1, 1, ...]) take the next
+# message's gap as exactly 0; repeats apart read the row an earlier
+# launch wrote.
+@pytest.mark.parametrize("r,ids", [(2048, [3]), (2048, [5, 5]),
+                                   (9000, [3, 1, 3, 0, 2, 1, 5, 3]),
+                                   (9000, [3, 1, 1, 0, 2, 1, 5, 5]),
+                                   (2048, [2, 0, 2])])
+def test_gap_update_kernel_is_reproducible_and_matches_plain_version(
+        cuda, r, ids):
+    """Twice on the same inputs bit for bit; within GAP_TOL of the plain
+    version; k launches counted (k + 2 kernels run)."""
+    from repro_torch.kernels.flat_update.kernel import flat_update_batch_gap
+    from repro_torch.kernels.flat_update.ref import (
+        flat_master_update_batch_ref)
+    state, g, scal = _gap_inputs(r, 6, len(ids), r + len(ids), cuda)
+    kw = dict(gap_ema=0.99, n_elems=r * 128 - 50, telemetry=True)
+    runs = []
+    reset_launches()
+    for _ in range(2):
+        out = list(flat_update_batch_gap(*(t.clone() for t in state), g,
+                                         ids, *scal, **kw))
+        out[4] = torch.stack(out[4])
+        runs.append(out)
+    assert launches(["gap_update"]) == {"gap_update": 2 * len(ids)}
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    theta, v, sent, avg = (t.clone() for t in state)
+    ref = flat_master_update_batch_ref(
+        theta, v, None, None, sent, avg, g, ids, scal[0], None, scal[1],
+        scal[2], scal[3], nesterov=False, gap_aware=True, hat_mode="theta",
+        **kw)
+    ref = (ref[0], ref[1], ref[4], ref[5], torch.stack(ref[6]), ref[7])
+    for a, b in zip(runs[0], ref):
+        torch.testing.assert_close(a, b, **GAP_TOL)
+
+
+def test_flat_update_wrappers_refuse_what_they_do_not_take(cuda):
+    from repro_torch.kernels.flat_update.kernel import (
+        flat_update_batch, flat_update_batch_gap)
+    (theta, v, sent, avg), g, scal = _gap_inputs(64, 3, 2, 0, cuda)
+    ids = [0, 2]
+    hcs = np.full(2, 0.01, np.float32)
+
+    def batch(theta=theta, v=v, g=g, ids=ids, **kw):
+        return flat_update_batch(theta, v, None, None, None, g, ids, *scal,
+                                 hcs, nesterov=False, **kw)
+
+    def gap(theta=theta, v=v, sent=sent, avg=avg, g=g, ids=ids):
+        return flat_update_batch_gap(theta, v, sent, avg, g, ids, *scal,
+                                     gap_ema=0.99, n_elems=64 * 128)
+    reset_launches()
+    for call in (batch, gap):
+        with pytest.raises(TypeError, match="float32"):
+            call(theta=theta.double())
+        with pytest.raises(ValueError, match="shape"):
+            call(v=v[:, :32])
+        with pytest.raises(ValueError, match="contiguous"):
+            call(theta=theta.t().contiguous().t())
+        with pytest.raises(ValueError, match="aligned"):
+            call(theta=torch.empty(64 * 128 + 1, device=cuda)[1:].view(
+                64, 128))
+        with pytest.raises(ValueError, match="is on"):
+            call(g=g.cpu())
+        with pytest.raises(ValueError, match="ids"):
+            call(ids=[0, 3])
+        with pytest.raises(ValueError, match="CUDA"):
+            call(theta=theta.cpu())
+    with pytest.raises(ValueError, match="hat_mode"):
+        batch(hat_mode="v0")
+    with pytest.raises(ValueError, match="avg_step"):
+        gap(avg=avg.double())
+    assert launches(["flat_update_batch", "gap_update"]) == {
+        "flat_update_batch": 0, "gap_update": 0}
 
 
 # ---------------------------------------------------------------------------
