@@ -2,11 +2,13 @@
 
 ``ClassificationTask`` is a Gaussian-mixture classification problem with a
 fixed random teacher; it plays the role of CIFAR/ImageNet in the scaling
-studies.  Batches are deterministic functions of (worker_id, counter,
-seed), drawn from the SAME numpy streams as the JAX package's task, so
-both packages see the same batches and the same data order (the paper's
-controlled comparison: "all algorithms share the same worker update
-schedules").  Tensors land on ``device``; labels are int64.
+studies.  ``LMTask`` is next-token prediction over sequences drawn from a
+fixed sparse Markov teacher; it feeds the real-model training paths.
+Batches are deterministic functions of (worker_id, counter, seed), drawn
+from the SAME numpy streams as the JAX package's tasks, so both packages
+see the same batches and the same data order (the paper's controlled
+comparison: "all algorithms share the same worker update schedules").
+Tensors land on ``device``; labels are int64, tokens int32.
 """
 from __future__ import annotations
 
@@ -60,3 +62,50 @@ class ClassificationTask:
         w1, w2 = self._teacher()
         y = np.argmax(np.tanh(x @ w1) @ w2, axis=-1)
         return self._tensors(x, y)
+
+
+@dataclasses.dataclass(frozen=True)
+class LMTask:
+    """Synthetic language modelling: tokens follow a fixed sparse Markov
+    teacher (each token has 4 likely successors, 10 % uniform noise), so
+    there is real signal to learn (loss well below uniform)."""
+    vocab_size: int = 256
+    seq_len: int = 128
+    batch_size: int = 8
+    seed: int = 0
+    device: str = "cuda"
+
+    def _transition(self):
+        rng = np.random.default_rng(self.seed + 7)
+        return rng.integers(0, self.vocab_size, size=(self.vocab_size, 4))
+
+    def _sample_tokens(self, rng, shape):
+        succ = self._transition()
+        b, s = shape
+        toks = np.empty((b, s), dtype=np.int32)
+        toks[:, 0] = rng.integers(0, self.vocab_size, size=b)
+        for t in range(1, s):
+            choice = rng.integers(0, 4, size=b)
+            noise = rng.random(size=b) < 0.1
+            nxt = succ[toks[:, t - 1], choice]
+            rand = rng.integers(0, self.vocab_size, size=b)
+            toks[:, t] = np.where(noise, rand, nxt)
+        return toks
+
+    def batch(self, worker: int, counter: int):
+        rng = _fold(self.seed, worker + 1, counter)
+        toks = self._sample_tokens(rng, (self.batch_size, self.seq_len))
+        return torch.from_numpy(toks).to(self.device)
+
+    def eval_batch(self, size: int = 16):
+        rng = _fold(self.seed, 0, 0)
+        return torch.from_numpy(
+            self._sample_tokens(rng, (size, self.seq_len))).to(self.device)
+
+
+def classification_batches(task: ClassificationTask):
+    return lambda worker, counter: task.batch(worker, counter)
+
+
+def lm_batches(task: LMTask):
+    return lambda worker, counter: task.batch(worker, counter)

@@ -18,12 +18,17 @@
       --grads 2000 --coalesce 4 --trace results/cluster.trace.json \
       --metrics-out results/cluster.metrics.json
 
+  # a real model's gradients through the parameter server: qwen2-1.5b
+  # reduced with the tiny-LM overrides, 64-token sequences
+  python -m repro_torch.launch.cluster --preset lm --model qwen2-1.5b \
+      --workers 4 --grads 64 --mode deterministic --compare-engine
+
 Runs on the GPU (``--device cuda``, the default) or, with ``--device
 cpu``, on the CPU through the kernels' plain versions.  Run with
 ``PYTHONPATH=src`` from the repository root.  The flags are the JAX
 package's ``repro.launch.cluster``'s, with the same defaults; options
 the port does not implement yet (``--shards`` > 1, ``--backend
-process``) raise, and ``--preset`` offers only the classifier.
+process``) raise.
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ import json
 import os
 
 import numpy as np
+import torch
 
 from ..cluster import ClusterConfig, FaultPlan, run_cluster
 from ..core.algorithms import REGISTRY, make_algorithm
@@ -39,7 +45,7 @@ from ..core.engine import SimulationConfig, run_simulation
 from ..core.gamma import GammaModel
 from ..core.schedules import Schedule
 from ..core.types import HyperParams, tree_leaves
-from ..data.synthetic import ClassificationTask
+from ..data.synthetic import ClassificationTask, LMTask
 from ..models.toy import ClassifierGradFn, make_classifier_fns
 
 
@@ -57,14 +63,32 @@ def _parse_dropout(specs):
 
 
 def _setup(args):
-    task = ClassificationTask(dim=args.dim, num_classes=10,
-                              batch_size=args.batch, seed=args.seed,
-                              device=args.device)
-    dims = [args.dim, args.width, args.width, 10]
-    init, _, make_eval = make_classifier_fns(dims)
-    params0 = init(np.random.default_rng(args.seed), device=args.device)
-    return (params0, ClassifierGradFn(dims), task.batch,
-            make_eval(task.eval_batch()))
+    if args.preset == "classifier":
+        task = ClassificationTask(dim=args.dim, num_classes=10,
+                                  batch_size=args.batch, seed=args.seed,
+                                  device=args.device)
+        dims = [args.dim, args.width, args.width, 10]
+        init, _, make_eval = make_classifier_fns(dims)
+        params0 = init(np.random.default_rng(args.seed), device=args.device)
+        return (params0, ClassifierGradFn(dims), task.batch,
+                make_eval(task.eval_batch()))
+    # real-model preset: any registered config name, reduced to smoke
+    # scale.  ModelGradFn carries (config name, overrides) instead of a
+    # built model, as the JAX package's does for its process backend.
+    from ..models.api import TINY_LM_OVERRIDES, ModelGradFn
+    over = dict(TINY_LM_OVERRIDES) if args.model == "qwen2-1.5b" else {}
+    grad_fn = ModelGradFn(args.model, overrides=over, mesh_shape=(1, 1))
+    model = grad_fn.build_model()
+    task = LMTask(vocab_size=model.cfg.vocab_size, seq_len=64,
+                  batch_size=args.batch, seed=args.seed, device=args.device)
+    params0 = grad_fn.init(torch.Generator(device=args.device).manual_seed(
+        args.seed), device=args.device)
+    ev = task.eval_batch(8)
+
+    @torch.no_grad()
+    def eval_fn(params):
+        return model.loss(params, {"tokens": ev})
+    return params0, grad_fn, task.batch, eval_fn
 
 
 def main(argv=None):
@@ -72,9 +96,13 @@ def main(argv=None):
     ap.add_argument("--algo", default="dana-zero",
                     choices=sorted(REGISTRY))
     ap.add_argument("--preset", default="classifier",
-                    choices=["classifier"],
-                    help="the MLP classifier (the language-model preset "
-                         "waits for the port's model stack, ROADMAP.md)")
+                    choices=["classifier", "lm"],
+                    help="classifier: the MLP; lm: a real model's LM "
+                         "loss on the synthetic Markov task (--model)")
+    ap.add_argument("--model", default="qwen2-1.5b",
+                    help="config name for --preset lm (any ported "
+                         "ArchConfig; reduced to smoke scale, with the "
+                         "tiny-LM overrides for the default config)")
     ap.add_argument("--workers", type=int, default=8)
     ap.add_argument("--grads", type=int, default=1000)
     ap.add_argument("--mode", default="free",

@@ -4,11 +4,14 @@
       --reduced --device cpu --batch 4 --prompt-len 32 --gen 16
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch recurrentgemma-9b --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
+      --reduced --device cpu
 
-Ported families: falcon-mamba-7b and recurrentgemma-9b (the others raise
-naming their ROADMAP item).  ``--window`` caps every attention cache at
-that many positions (recurrentgemma's local layers keep their own window
-of ``cfg.window`` either way).
+Ported families: falcon-mamba-7b, recurrentgemma-9b and the dense
+qwen2 configs (the others raise naming their ROADMAP item).
+``--window`` caps every attention cache at that many positions and
+makes the dense layers attend within it (recurrentgemma's local layers
+keep their own window of ``cfg.window`` either way).
 
 Parameters are drawn from ``--seed`` and stored in bfloat16 (the JAX
 CLI casts every float32 leaf to bfloat16; here each leaf is drawn in

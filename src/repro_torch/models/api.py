@@ -1,12 +1,14 @@
-"""Public model API: build a model from an ArchConfig, its serve functions
-(forward, prefill, decode, empty cache) and concrete input batches.
+"""Public model API: build a model from an ArchConfig, its loss and serve
+functions (forward, prefill, decode, empty cache), concrete input
+batches, and ``ModelGradFn``, the picklable gradient of a real model's
+LM loss that the cluster's ``--preset lm`` hands its workers.
 
 ``Model.dtype`` is the activation type of every call, bfloat16 by
 default as in the JAX package (whose ``Model`` always runs bf16); the
 parity tests build ``Model(cfg, torch.float32)``.
 
-Not ported yet: ``input_specs`` (the dry-runs' shape stand-ins, ROADMAP
-A8), ``Model.loss`` and ``ModelGradFn`` (the training slice, A7).
+Not ported yet: ``input_specs`` (the dry-runs' shape stand-ins) and
+``ModelGradFn``'s per-worker mesh (both ROADMAP A8).
 """
 from __future__ import annotations
 
@@ -16,8 +18,9 @@ import numpy as np
 import torch
 
 from ..configs.base import ArchConfig, InputShape
+from ..core.types import tree_flatten, tree_unflatten
 from .attention import CacheSpec
-from .lm import decode_step, forward, init_cache, init_lm, prefill
+from .lm import decode_step, forward, init_cache, init_lm, lm_loss, prefill
 
 
 def cache_spec_for(cfg: ArchConfig, shape: InputShape) -> CacheSpec:
@@ -55,6 +58,10 @@ class Model:
         ``device``), stored in ``dtype``."""
         return init_lm(gen, self.cfg, device, dtype)
 
+    # -- train -------------------------------------------------------------
+    def loss(self, params, batch):
+        return lm_loss(params, self.cfg, batch, dtype=self.dtype)
+
     # -- serve -------------------------------------------------------------
     def forward(self, params, batch):
         return forward(params, self.cfg, batch, self.dtype)
@@ -86,3 +93,87 @@ class Model:
 
 def build_model(cfg: ArchConfig, dtype=torch.bfloat16) -> Model:
     return Model(cfg, dtype)
+
+
+# a tiny-but-real reduction used by the cluster's lm preset: real
+# attention / mlp / embedding leaves (ragged shapes, the full pack
+# surface) at CPU smoke-test cost
+TINY_LM_OVERRIDES = dict(vocab_size=128, d_model=64, num_heads=4,
+                         num_kv_heads=2, head_dim=32, d_ff=256)
+
+
+class ModelGradFn:
+    """Picklable gradient of a real model's LM loss.
+
+    It carries only ``(config_name, reduced, overrides, mesh_shape)`` and
+    builds the model and its gradient lazily, in the process that calls
+    it, as the JAX package's ``ModelGradFn`` does (see
+    ``models.toy.ClassifierGradFn`` for the toy twin).  ``mesh_shape``
+    may be None or (1, 1): one device, no constraint; a larger
+    per-worker mesh raises (ROADMAP A8).
+
+    ``__call__(params, tokens)`` takes the raw (B, S) token tensor the
+    synthetic ``LMTask`` emits (the cluster's wire convention for the lm
+    preset), wraps it into ``Model.loss``'s batch dict and returns the
+    gradient tree.  The model computes in bfloat16 from the parameters'
+    own leaves (float32 at the master), so each gradient is the float32
+    widening of a bfloat16-rounded one wherever the forward casts a leaf,
+    as ``jax.grad`` of float32 parameters through the JAX package's
+    bfloat16 forward gives it.
+    """
+
+    def __init__(self, config_name: str, *, reduced: bool = True,
+                 overrides: dict | None = None,
+                 mesh_shape: tuple[int, int] | None = None):
+        self.config_name = str(config_name)
+        self.reduced = bool(reduced)
+        self.overrides = dict(overrides or {})
+        self.mesh_shape = tuple(mesh_shape) if mesh_shape else None
+        if self.mesh_shape not in (None, (1, 1)):
+            raise NotImplementedError(
+                f"ModelGradFn runs on one device; a per-worker mesh "
+                f"{self.mesh_shape} is not ported yet: ROADMAP A8")
+        self._grad = None
+
+    def __getstate__(self):
+        return {"config_name": self.config_name, "reduced": self.reduced,
+                "overrides": self.overrides,
+                "mesh_shape": self.mesh_shape}
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._grad = None
+
+    # -- lazy per-process construction -----------------------------------
+    def build_config(self) -> ArchConfig:
+        from ..configs import get_config
+        cfg = get_config(self.config_name)
+        if self.reduced:
+            cfg = cfg.reduced()
+        return dataclasses.replace(cfg, **self.overrides)
+
+    def build_model(self) -> Model:
+        return build_model(self.build_config())
+
+    def init(self, gen, device="cuda"):
+        """float32 parameters drawn from ``gen`` (a ``torch.Generator``
+        on ``device``)."""
+        return self.build_model().init(gen, device=device)
+
+    def _build(self):
+        model = self.build_model()
+
+        def grad(params, tokens):
+            leaves, treedef = tree_flatten(params)
+            leaves = [l.detach().requires_grad_(True) for l in leaves]
+            with torch.enable_grad():
+                loss = model.loss(tree_unflatten(treedef, leaves),
+                                  {"tokens": tokens})
+                grads = torch.autograd.grad(loss, leaves)
+            return tree_unflatten(treedef, list(grads))
+        return grad
+
+    def __call__(self, params, tokens):
+        if self._grad is None:
+            self._grad = self._build()
+        return self._grad(params, tokens)

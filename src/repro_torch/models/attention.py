@@ -1,14 +1,15 @@
 """GQA attention: the sliding-window prefill path, the unified ring-buffer
 KV-cache decode path and RoPE.
 
-``flash_attention`` is ported for the one case recurrentgemma runs:
-causal with a sliding window and no segments.  It goes through
-``kernels.swa_attention.swa_attention`` on every device (the CUDA kernel
-on the card, its plain version on the CPU), where the JAX package runs
-its chunked ``jnp`` flash recurrence and names the Pallas kernel as the
-TPU route.  The other cases raise, naming the ROADMAP item that brings
-them: full causal or non-causal attention (the dense and enc-dec
-families, A7(d)), ``segments`` (packed sequences, A7(e)), int8
+``flash_attention`` is ported for causal attention without segments:
+with a sliding window (recurrentgemma's ``attn_local``) and without one
+(the dense ``attn`` kind), which is the same function with a window of
+S.  It goes through ``kernels.swa_attention.swa_attention`` on every
+device (the CUDA kernel on the card, its plain version on the CPU),
+where the JAX package runs its chunked ``jnp`` flash recurrence and
+names the Pallas kernel as the TPU route.  The other cases raise,
+naming the ROADMAP item that brings them: non-causal attention (the
+enc-dec family, A7(d)), ``segments`` (packed sequences, A7(e)), int8
 (``quant=True``) caches and ``cross_attention`` (A7(d)).
 
 ``decode_attention`` is plain PyTorch (einsums in the JAX package, no
@@ -110,14 +111,15 @@ def attention_block_output(params, attn_out, x_dtype):
 def flash_attention(q, k, v, *, causal=True, window=None, segments=None):
     """q: (B,S,H,hd); k, v: (B,S,K,hd) with H = K*G.  Returns (B,S,H,hd).
 
-    Only causal sliding-window attention without segments is ported; it
-    is ``swa_attention``'s function."""
+    Causal attention without segments is ported; it is
+    ``swa_attention``'s function, with a window of S when ``window`` is
+    None (keys in (i - S, i] are every key up to i)."""
     if segments is not None:
         raise _unported("attention over packed segments", "A7(e)")
     if not causal:
         raise _unported("non-causal attention", "A7(d), the enc-dec family")
     if window is None:
-        raise _unported("full causal attention", "A7(d), the dense family")
+        window = max(q.shape[1], 1)
     return swa_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                          int(window))
 

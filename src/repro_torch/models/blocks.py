@@ -1,10 +1,12 @@
 """Residual blocks by kind and their decode caches.
 
-Ported kinds: ``mamba`` (falcon-mamba's standalone Mamba-1 block), and
+Ported kinds: ``mamba`` (falcon-mamba's standalone Mamba-1 block),
 recurrentgemma's ``rec`` (RG-LRU + MLP) and ``attn_local`` (sliding-window
-attention + MLP).  The other kinds of the JAX package raise
-``NotImplementedError`` naming the ROADMAP item that brings them, as do
-the MoE FFN and int8 caches.
+attention + MLP), and the dense family's ``attn`` (full causal attention +
+MLP: ``swa_attention`` with a window of S, a cache of the spec's full
+capacity, or its window where the spec sets one).  The other kinds of the
+JAX package raise ``NotImplementedError`` naming the ROADMAP item that
+brings them, as do the MoE FFN and int8 caches.
 """
 from __future__ import annotations
 
@@ -20,7 +22,6 @@ from .recurrent import (apply_mamba, apply_rglru, init_mamba,
                         init_mamba_state, init_rglru, init_rglru_state)
 
 TODO = {
-    "attn": "ROADMAP A7(d): the dense family (full causal attention)",
     "attn_bidir": "ROADMAP A7(d): the enc-dec family",
     "attn_cross": "ROADMAP A7(d): the enc-dec family",
 }
@@ -50,7 +51,7 @@ def init_block(gen, cfg: ArchConfig, kind: str, device="cuda",
     def zeros():
         return torch.zeros((d,), dtype=dtype, device=device)
 
-    if kind == "attn_local":
+    if kind in ("attn", "attn_local"):
         p = {
             "ln1": zeros(),
             "attn": init_attention(gen, d, cfg.num_heads, cfg.num_kv_heads,
@@ -90,11 +91,12 @@ def _apply_ffn(params, x, cfg: ArchConfig):
 
 def _self_attention(params, x, cfg: ArchConfig, kind, positions,
                     segments=None):
-    if kind != "attn_local":
+    if kind not in ("attn", "attn_local"):
         raise _unported(kind)
     q, k, v = _project_qkv(params["attn"], x)
     q, k = apply_rope(q, k, cfg.rope, positions)
-    out = flash_attention(q, k, v, causal=True, window=cfg.window,
+    window = cfg.window if kind == "attn_local" else None
+    out = flash_attention(q, k, v, causal=True, window=window,
                           segments=segments)
     return attention_block_output(params["attn"], out, x.dtype)
 
@@ -107,7 +109,7 @@ def apply_block(params, x, kind: str, cfg: ArchConfig, ctx: dict):
     the block's recurrent state (None for attention)."""
     aux = 0.0
     state_out = None
-    if kind == "attn_local":
+    if kind in ("attn", "attn_local"):
         h = rms_norm(x, params["ln1"])
         x = x + _self_attention(params, h, cfg, kind, ctx["positions"],
                                 ctx.get("segments"))
@@ -134,16 +136,22 @@ def apply_block(params, x, kind: str, cfg: ArchConfig, ctx: dict):
 def prefill_block(params, x, kind: str, cfg: ArchConfig, ctx: dict):
     """Like apply_block but also materialises the decode cache: for
     ``attn_local`` the ring-buffered K/V of the last min(capacity,
-    window) positions, for a recurrent kind its final state."""
-    if kind == "attn_local":
+    window) positions, for ``attn`` those of the spec's capacity and
+    window, for a recurrent kind its final state."""
+    if kind in ("attn", "attn_local"):
         spec: CacheSpec = ctx["spec"]
         h = rms_norm(x, params["ln1"])
         q, k, v = _project_qkv(params["attn"], h)
         q, k = apply_rope(q, k, cfg.rope, ctx["positions"])
-        out = flash_attention(q, k, v, causal=True, window=cfg.window)
+        if kind == "attn_local":
+            window = cfg.window
+            cache_spec = CacheSpec(min(spec.capacity, cfg.window),
+                                   cfg.window)
+        else:
+            window, cache_spec = spec.window, spec
+        out = flash_attention(q, k, v, causal=True, window=window)
         x = x + attention_block_output(params["attn"], out, x.dtype)
-        cache = _cache_from_kv(k, v, CacheSpec(
-            min(spec.capacity, cfg.window), cfg.window))
+        cache = _cache_from_kv(k, v, cache_spec)
         h2 = rms_norm(x, params["ln2"])
         y, aux = _apply_ffn(params, h2, cfg)
         return x + y, aux, cache
@@ -184,10 +192,12 @@ def _cache_from_kv(k, v, spec: CacheSpec):
 # decode
 # ---------------------------------------------------------------------------
 def decode_block(params, x, kind: str, cfg: ArchConfig, cache, ctx: dict):
-    if kind == "attn_local":
+    if kind in ("attn", "attn_local"):
         spec: CacheSpec = ctx["spec"]
         h = rms_norm(x, params["ln1"])
-        s = CacheSpec(cache["k"].shape[1], cfg.window, spec.quant)
+        s = CacheSpec(cache["k"].shape[1],
+                      cfg.window if kind == "attn_local" else spec.window,
+                      spec.quant)
         y, cache = decode_attention(params["attn"], h, cache, ctx["t"], s,
                                     rope=cfg.rope,
                                     positions=ctx.get("positions"))
@@ -207,10 +217,11 @@ def decode_block(params, x, kind: str, cfg: ArchConfig, cache, ctx: dict):
 # ---------------------------------------------------------------------------
 def init_block_cache(cfg: ArchConfig, kind: str, batch: int,
                      spec: CacheSpec, dtype=torch.bfloat16, device="cuda"):
-    if kind == "attn_local":
-        return init_kv_cache(batch, min(spec.capacity, cfg.window),
-                             cfg.num_kv_heads, cfg.head_dim, dtype,
-                             quant=spec.quant, device=device)
+    if kind in ("attn", "attn_local"):
+        cap = min(spec.capacity, cfg.window) if kind == "attn_local" \
+            else spec.capacity
+        return init_kv_cache(batch, cap, cfg.num_kv_heads, cfg.head_dim,
+                             dtype, quant=spec.quant, device=device)
     if kind == "mamba":
         return init_mamba_state(batch, cfg.d_inner, cfg.ssm_state,
                                 cfg.conv_width, dtype, device)

@@ -1,4 +1,5 @@
-"""Shared model building blocks: initializers, the RMS norm and RoPE.
+"""Shared model building blocks: initializers, the RMS norm, the
+cross-entropy loss and RoPE.
 
 Models are plain trees of tensors (nested dicts and lists) and plain
 functions over them, as in the JAX package.  Initializers draw from an
@@ -9,8 +10,8 @@ weights across (``convert.lm_params_from_numpy``).
 Not ported: the logical-axis rules and the mesh (``with_logical_constraint``
 and friends: ROADMAP A8), the ``kernel_dispatch`` switch (each kernel's
 wrapper picks the CUDA kernel or the plain version by the device of its
-tensors), ``softmax_xent_logits`` (the training slice, A7(c)), and the
-2-D and M-RoPE variants (their families, A7(d)), which raise.
+tensors), and the 2-D and M-RoPE variants (their families, A7(d)),
+which raise.
 """
 from __future__ import annotations
 
@@ -42,6 +43,20 @@ def rms_norm(x, scale, eps: float = 1e-6):
     return out.to(dtype)
 
 
+def softmax_xent_logits(logits, labels, mask=None):
+    """Mean next-token cross entropy in float32; labels == -1 are
+    ignored, and so are positions where ``mask`` is 0."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        torch.clamp_min(labels, 0).long()[..., None])[..., 0]
+    valid = (labels >= 0).float()
+    if mask is not None:
+        valid = valid * mask.float()
+    return torch.sum((logz - gold) * valid) / torch.clamp_min(
+        torch.sum(valid), 1.0)
+
+
 def silu(x):
     """x * sigmoid(x), as ``jax.nn.silu``."""
     return x * torch.sigmoid(x)
@@ -56,8 +71,10 @@ def _rope_freqs(head_dim: int, theta: float = 10000.0, device=None):
     ulp of a frequency moves the angle by about 2e-4 rad."""
     d2 = head_dim // 2
     expo = torch.arange(0, d2, dtype=torch.float32, device=device) / d2
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                        device=device), expo)
+    # torch.full, not torch.tensor: no host-to-device copy (which waits
+    # for the stream) in every attention layer's forward
+    return 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32,
+                                      device=device), expo)
 
 
 def _apply_rotary(x, angles):

@@ -1,11 +1,18 @@
-"""Decoder-only LM over the block zoo: init, forward, prefill, decode.
+"""Decoder-only LM over the block zoo: init, forward, loss, prefill,
+decode.
 
 The parameter tree is the JAX package's: ``embed``, ``final_norm``,
 ``lm_head``, ``prologue`` (a list of blocks) and ``unit`` (one tree per
 kind of the repeated pattern, every leaf STACKED ``(unit_repeats,
 ...)``), so weights carry across leaf by leaf.  The JAX package scans
 the unit with remat; here the layers are a Python loop over the repeat
-index ``r`` (no scan, no remat: PyTorch runs eagerly).  The decode cache
+index ``r`` (no scan: PyTorch runs eagerly).  The forward checkpoints
+each repeat of the unit
+(``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``, as the
+JAX package wraps its scan body in ``jax.checkpoint``) whenever autograd
+records, so the backward recomputes a repeat's activations instead of
+keeping them: each kernel of the unit launches twice a forward and
+backward, once in the forward and once in the recompute.  The decode cache
 keeps the JAX layout ``{"prologue": [...], "unit": [per kind, every
 leaf stacked], "t"}`` (``{"conv", "ssm"}`` for mamba, ``{"conv", "h"}``
 for rec, ``{"k", "v", "pos"}`` for attn_local).
@@ -15,19 +22,20 @@ in float32 and cast to ``dtype`` as it is written, so a 7B model
 initialises in the serve type without a float32 copy of the whole
 (falcon-mamba-7b's stacked ``in_proj`` is 17 GB in float32).
 
-Not ported yet: ``lm_loss`` (the training slice, A7(c)), the encoder,
-the modality prefix and M-RoPE positions (A7(d)).
+Not ported yet: the encoder, the modality prefix and M-RoPE positions
+(A7(d)).
 """
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from ..configs.base import ArchConfig
-from ..core.types import tree_leaves, tree_map
+from ..core.types import tree_flatten, tree_leaves, tree_map, tree_unflatten
 from .attention import CacheSpec
 from .blocks import (apply_block, decode_block, init_block, init_block_cache,
                      prefill_block)
-from .common import dense_init, embed_init, rms_norm
+from .common import dense_init, embed_init, rms_norm, softmax_xent_logits
 
 
 # ---------------------------------------------------------------------------
@@ -70,6 +78,16 @@ def _layer(stacked, r: int):
     return tree_map(lambda l: l[r], stacked)
 
 
+def _layers(stacked) -> list:
+    """The layers of a stacked tree, each a tree of views (no copy).  One
+    ``unbind`` a leaf: its backward stacks the layers' gradients once,
+    where indexing each layer would make each layer's gradient a
+    zero-filled tensor of the whole stack, summed over the layers."""
+    leaves, treedef = tree_flatten(stacked)
+    cols = [l.unbind(0) for l in leaves]
+    return [tree_unflatten(treedef, list(layer)) for layer in zip(*cols)]
+
+
 def _stack(trees):
     return tree_map(lambda *ls: torch.stack(ls), *trees)
 
@@ -98,26 +116,44 @@ def _unit_loop(params_unit, x, cfg: ArchConfig, ctx, collect_cache=False,
 
     collect_cache: prefill mode, returns stacked caches.
     caches: decode mode, consumes and returns stacked caches.
+    Otherwise the forward, each repeat checkpointed when autograd
+    records.
     """
     kinds = cfg.pattern_unit
+    layers = [_layers(p) for p in params_unit]    # layers[j][r]
     if caches is not None:                       # ---- decode
         new = [[] for _ in kinds]
+        cache_layers = [_layers(c) for c in caches]
         for r in range(cfg.unit_repeats):
-            for j, (p, kind) in enumerate(zip(params_unit, kinds)):
-                x, c = decode_block(_layer(p, r), x, kind, cfg,
-                                    _layer(caches[j], r), ctx)
+            for j, kind in enumerate(kinds):
+                x, c = decode_block(layers[j][r], x, kind, cfg,
+                                    cache_layers[j][r], ctx)
                 new[j].append(c)
         return x, 0.0, [_stack(cs) for cs in new]
+
+    if not collect_cache and torch.is_grad_enabled():
+        def body(x, r):
+            aux = 0.0
+            for j, kind in enumerate(kinds):
+                x, a, _ = apply_block(layers[j][r], x, kind, cfg, ctx)
+                aux = aux + a
+            return x, aux
+        aux = 0.0
+        for r in range(cfg.unit_repeats):
+            x, a = torch.utils.checkpoint.checkpoint(body, x, r,
+                                                     use_reentrant=False)
+            aux = aux + a
+        return x, aux, None
 
     aux = 0.0
     out = [[] for _ in kinds]
     for r in range(cfg.unit_repeats):
-        for j, (p, kind) in enumerate(zip(params_unit, kinds)):
+        for j, kind in enumerate(kinds):
             if collect_cache:                    # ---- prefill
-                x, a, cache = prefill_block(_layer(p, r), x, kind, cfg, ctx)
+                x, a, cache = prefill_block(layers[j][r], x, kind, cfg, ctx)
                 out[j].append(cache)
             else:                                # ---- forward
-                x, a, _ = apply_block(_layer(p, r), x, kind, cfg, ctx)
+                x, a, _ = apply_block(layers[j][r], x, kind, cfg, ctx)
             aux = aux + a
     return x, aux, ([_stack(cs) for cs in out] if collect_cache else None)
 
@@ -128,7 +164,8 @@ def _unit_loop(params_unit, x, cfg: ArchConfig, ctx, collect_cache=False,
 def forward(params, cfg: ArchConfig, batch, dtype=torch.bfloat16):
     """Full forward -> (logits (B,S,V), aux_loss).  batch: {"tokens"
     (B,S) int}, optional "positions" (B,S) and "segments" (packed
-    sequences, which attention refuses until A7(e))."""
+    sequences, which attention refuses until A7(e)).  Each unit repeat
+    is checkpointed when autograd records."""
     tokens = batch["tokens"]
     x = _embed_tokens(params, tokens, dtype)
     positions = batch.get("positions")
@@ -143,6 +180,23 @@ def forward(params, cfg: ArchConfig, batch, dtype=torch.bfloat16):
     aux = aux + a
     x = rms_norm(x, params["final_norm"])
     return x @ params["lm_head"].to(x.dtype), aux
+
+
+def lm_loss(params, cfg: ArchConfig, batch, aux_weight: float = 0.01,
+            dtype=torch.bfloat16):
+    """Next-token loss: the cross entropy of each position's logits
+    against the next token (the last position's label is -1, ignored),
+    in float32, plus ``aux_weight`` times the blocks' auxiliary loss (0
+    for every ported kind).  An optional "loss_mask" (B,S) zeroes
+    targets, as in the JAX package."""
+    logits, aux = forward(params, cfg, batch, dtype)
+    tokens = batch["tokens"]
+    labels = torch.cat([tokens[:, 1:].to(torch.int32),
+                        torch.full((tokens.shape[0], 1), -1,
+                                   dtype=torch.int32,
+                                   device=tokens.device)], dim=1)
+    loss = softmax_xent_logits(logits, labels, mask=batch.get("loss_mask"))
+    return loss + aux_weight * aux
 
 
 # ---------------------------------------------------------------------------

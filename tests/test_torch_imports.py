@@ -74,6 +74,11 @@ NEW_IN_SLICE_5 = (
 # the backward of the forward-only CUDA kernels (scans, attention)
 NEW_IN_SLICE_6 = ("repro_torch.kernels._autograd",)
 
+# the LM training path: checkpoints and the train CLI
+NEW_IN_SLICE_9 = ("repro_torch.checkpoint", "repro_torch.checkpoint.io",
+                  "repro_torch.checkpoint.manager",
+                  "repro_torch.launch.train")
+
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
@@ -84,7 +89,7 @@ def test_port_modules_import_no_jax_and_no_repro():
     mods = _port_modules()
     assert "repro_torch.kernels.flat_update.ops" in mods
     for name in (NEW_IN_SLICE_2 + NEW_IN_SLICE_4 + NEW_IN_SLICE_5
-                 + NEW_IN_SLICE_6):
+                 + NEW_IN_SLICE_6 + NEW_IN_SLICE_9):
         assert name in mods, name
     code = (
         "import importlib, json, sys\n"

@@ -191,9 +191,9 @@ def test_rglru_raises_naming_its_roadmap_items():
 
 def test_unported_families_raise():
     gen = torch.Generator().manual_seed(0)
-    cfg = get_config("qwen2-1.5b").reduced()
-    with pytest.raises(NotImplementedError, match="A7"):
-        lm.init_lm(gen, cfg, "cpu")
+    for name in ("granite-moe-3b-a800m", "seamless-m4t-large-v2"):
+        with pytest.raises(NotImplementedError, match="A7"):
+            lm.init_lm(gen, get_config(name).reduced(), "cpu")
     with pytest.raises(NotImplementedError, match="A7"):
         build_model(get_config("qwen2-vl-7b").reduced()).make_batch(8, 1)
 

@@ -15,8 +15,9 @@
 * A sequence that is no multiple of any block (the CUDA kernel masks its
   last tile; the plain version takes any S).
 * The port's ``flash_attention`` is that function for causal windowed
-  attention and raises, naming its ROADMAP item, for the cases the port
-  does not run yet.
+  attention, and with no window that function at a window of S (the
+  dense ``attn`` kind); it raises, naming its ROADMAP item, for the
+  cases the port does not run yet.
 * CPU tensors take the plain version and launch nothing; the CUDA-only
   wrapper refuses them.  The kernel itself is held against the plain
   version on a card by ``tests/test_torch_gpu.py`` and ``chip_smoke.py``.
@@ -112,8 +113,10 @@ def test_odd_sequence_and_single_key_window():
 
 def test_flash_attention_raises_for_unported_cases():
     q, k, v = _torch(_inputs(1, 8, 2, 2, 8, 0), "float32")
-    cases = [(dict(causal=True, window=None), "A7\\(d\\)"),
-             (dict(causal=False, window=4), "A7\\(d\\)"),
+    # full causal attention (the dense kind) is ported: a window of S
+    assert torch.equal(flash_attention(q, k, v, causal=True, window=None),
+                       swa_attention(q, k, v, 8))
+    cases = [(dict(causal=False, window=4), "A7\\(d\\)"),
              (dict(causal=True, window=4, segments=torch.ones(1, 8)),
               "A7\\(e\\)")]
     for kw, item in cases:
