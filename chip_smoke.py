@@ -27,9 +27,11 @@ of the paper's ImageNet ResNet-50 master state, and 64 workers (the
 paper's largest cluster) hold a 6.46 GB momentum slab (and ga-asgd,
 dana-dc and dc-asgd as large a snapshot slab); batches of 256 per worker
 (16K in total).  Depth is cut to 256 gradients (engine, deterministic
-cluster), 512 (free cluster), 64 (legacy kernel path), 128 (ga-asgd
-engine and deterministic cluster), 256 (ga-asgd free cluster) and 32
-(each other member).  falcon-mamba-7b runs at its published widths
+cluster, sharded deterministic), 512 (free cluster, sharded free), 64
+(legacy kernel path), 128 (ga-asgd engine, deterministic and sharded
+clusters; the hot-row run), 256 (ga-asgd free cluster), 32 (each other
+member) and 2 rounds of 64 (ssgd).  The row-sharded master's shards
+are threads on the card.  falcon-mamba-7b runs at its published widths
 (d_model 4096, d_inner 8192, ssm_state 16, conv 4, dt_rank 256, vocab
 65,024) and full depth (64 layers, 7.3B parameters, 14.6 GB in bf16);
 recurrentgemma-9b (arXiv:2402.19427) at its published widths (d_model
@@ -127,6 +129,34 @@ Phases (one JSON line each):
   members     each other new member (sa-asgd, dc-asgd, lwp, dana-dc,
               dana-hetero, nadam-asgd, dana-nadam) on the engine's
               kernel path and on its tree path, as main_path
+  sharded_deterministic
+              run_cluster, deterministic, dana-zero, 4 row-range shards
+              (threads on the card): final parameters, events and eval
+              losses bit for bit main_path's kernel run;
+              flat_update_batch 4 a message, send_view 4 an initial view
+  sharded_free
+              4 shards, free, coalescing up to 8, telemetry on: updates/s
+              beside cluster_free's, each shard's applied count and busy
+              seconds, the drained-k histogram
+  hot_rows    send_view over three row ranges of the layout (the first
+              layer's block, a middle range, the last rows), the slab
+              read in place through its pitch: dana-zero's view_rows
+              (N=1) bit for bit the full view's rows and the plain
+              version, the N=64 weighted send bit for bit the full call's
+              rows (the plain version within 1e-5), device times beside
+              the full view's and each range's bound; then a free run
+              whose workers 1-4 drop out and rejoin through pulls of
+              their declared hot rows
+  sharded_ga  ga-asgd, 2 shards, deterministic, the gap norms summed over
+              the shards' partials: final parameters within rtol 1e-5 /
+              atol 1e-6 of main_path_ga's single master
+  member ssgd / easgd / dana-easgd / yellowfin
+              run_simulation at full width on the tree path (ssgd 2
+              barrier rounds of 64 gradients, the others 32 messages):
+              finite losses, no kernel launched; at [2048, 256, 256, 10]
+              with 8 workers, batches of 32 and 8 messages (ssgd 2
+              rounds of 8) the card's final parameters within 1e-4
+              relative L2 of the CPU's
   serve_generate
               falcon-mamba-7b in bf16, batch 4, prompt 512, 32 new
               tokens through generate: prefill and decode tokens/s, peak
@@ -238,6 +268,18 @@ MEMBERS = ("sa-asgd", "dc-asgd", "lwp", "dana-dc", "dana-hetero",
 # Adam-sized rate for the Nadam pair (at the others' rate every element
 # moves by about lr per step, whatever its gradient)
 MEMBER_LR = {"nadam-asgd": 1e-3, "dana-nadam": 1e-3}
+SHARDS = 4                # sharded_deterministic / sharded_free
+GA_SHARDS = 2             # sharded_ga
+SHARDED_GA_TOL = dict(rtol=1e-5, atol=1e-6)
+HOT_GRADS = 128           # hot_rows: the free run with declared hot rows
+OFFFLAT = ("ssgd", "easgd", "dana-easgd", "yellowfin")
+OFFFLAT_GRADS = 32        # each asynchronous off-flat member
+SSGD_ROUNDS = 2           # ssgd: rounds of WORKERS gradients
+OFFFLAT_CPU_DIMS = [2048, 256, 256, 10]   # the card against the CPU,
+OFFFLAT_CPU_WORKERS = 8                   # with 8 workers, batches of
+OFFFLAT_CPU_BATCH = 32                    # 32 and 8 messages (ssgd: 2
+OFFFLAT_CPU_GRADS = 8                     # rounds of 8), for seconds
+OFFFLAT_CPU_TOL = 1e-4                    # relative L2
 # peak device-memory rate and f32 (non-tensor-core) rate by SKU: NVIDIA
 # data sheets; the SXM H100 is the default H100
 BANDWIDTH = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H100": 3.35e12,
@@ -331,28 +373,36 @@ def time_pair(fn_a, fn_b, reps=4 * REPS):
     return float(np.median(times[0])), float(np.median(times[1]))
 
 
-def profiled(fn, names, reps=REPS):
+def profiled(fn, names, reps=REPS, attempts=3):
     """{name: (device us, kernels)} over ``reps`` calls of ``fn`` (after a
     warm-up call), from torch.profiler's CUDA activity in one window, for
-    the kernels whose names contain each of ``names``."""
+    the kernels whose names contain each of ``names``.  The profiler
+    loses kernel records now and then (PERF.md): a window that shows no
+    record of a name is taken again, up to ``attempts`` windows."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for name in names:
-        hits = [(a.self_device_time_total, a.count)
-                for a in prof.key_averages()
+    for _ in range(attempts):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        seen = [a for a in prof.key_averages()
                 if a.device_type == torch.autograd.DeviceType.CUDA
-                and name in a.key and a.self_device_time_total > 0]
-        if not hits:
-            raise AssertionError(f"the profiler saw no device time of "
-                                 f"{name}")
-        out[name] = (sum(t for t, _ in hits), sum(c for _, c in hits))
-    return out
+                and a.self_device_time_total > 0]
+        out = {}
+        for name in names:
+            hits = [(a.self_device_time_total, a.count) for a in seen
+                    if name in a.key]
+            if hits:
+                out[name] = (sum(t for t, _ in hits),
+                             sum(c for _, c in hits))
+        if len(out) == len(names):
+            return out
+    raise AssertionError(f"the profiler saw no device time of "
+                         f"{sorted(set(names) - set(out))} in {attempts} "
+                         f"windows (its CUDA records: "
+                         f"{sorted({a.key for a in seen})[:10]})")
 
 
 def device_ms(fn, name, reps=REPS, per_call=False):
@@ -1109,6 +1159,303 @@ def phase_cluster_legacy(conf):
             not rec["events_equal_to_tree_path"]:
         raise AssertionError("cluster_legacy differs from the tree path")
     return rec
+
+
+# -- the row-sharded master, hot rows, the off-flat members ----------------
+def phase_sharded_deterministic(conf, hist_e, final_e):
+    """dana-zero, SHARDS shards, deterministic: final parameters, events
+    and eval losses bit for bit main_path's engine kernel run; one
+    flat_update_batch per shard per message, one send_view per shard
+    per initial view."""
+    from repro_torch.core.types import tree_leaves
+    hist, stats, counts, secs, peak = run_cluster_once(
+        conf, mode="deterministic", total_grads=GRADS, shards=SHARDS)
+    rec = cluster_record("sharded_deterministic", hist, stats, counts,
+                         secs, peak)
+    rec["shards"] = SHARDS
+    rec["shard_applied"] = stats["shard_applied"]
+    rec["shard_busy_s"] = stats["shard_busy_s"]
+    same = {key: getattr(hist, key) == getattr(hist_e, key)
+            for key in ("time", "worker", "lag", "step", "eval_loss")}
+    rec["final_params_bit_equal_to_engine"] = all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(hist.final_params),
+                                          final_e))
+    rec["equal_to_engine"] = same
+    emit(rec)
+    if (counts["flat_update_batch"] != SHARDS * GRADS
+            or counts["send_view"] != SHARDS * WORKERS
+            or counts["gap_update"]):
+        raise AssertionError(f"sharded_deterministic launches: {counts}")
+    if not (rec["final_params_bit_equal_to_engine"] and all(same.values())):
+        raise AssertionError("sharded_deterministic differs from the "
+                             "engine's kernel path")
+    return rec
+
+
+def phase_sharded_ga(conf, final_e):
+    """ga-asgd, GA_SHARDS shards, deterministic: the gap norms summed
+    over the shards' partials (plain torch ops on the card, two host
+    syncs a message); final parameters within SHARDED_GA_TOL of
+    main_path_ga's single master (through gap_update)."""
+    from repro_torch.core.types import tree_leaves
+    hist, stats, counts, secs, peak = run_cluster_once(
+        conf, mode="deterministic", total_grads=GA_GRADS, shards=GA_SHARDS)
+    rec = cluster_record("sharded_ga", hist, stats, counts, secs, peak)
+    rec["shards"] = GA_SHARDS
+    rec["shard_applied"] = stats["shard_applied"]
+    final = tree_leaves(hist.final_params)
+    rec["max_abs_err_vs_single_master"] = max(
+        max_err(a, b, SHARDED_GA_TOL, "sharded_ga final parameters")
+        for a, b in zip(final, final_e))
+    rec["tolerance"] = SHARDED_GA_TOL
+    rec["final_params_rel_l2_vs_single_master"] = rel_l2(final, final_e)
+    emit(rec)
+    if any(counts.values()) or stats["shard_applied"] != [GA_GRADS] * \
+            GA_SHARDS:
+        raise AssertionError(f"sharded_ga: launches {counts}, applied "
+                             f"{stats['shard_applied']}")
+    return rec
+
+
+def phase_sharded_free(conf, single):
+    """dana-zero, SHARDS shards, free, coalescing up to 8, telemetry on:
+    updates/s beside cluster_free's (the single master), each shard's
+    applied count and busy seconds, the drained-k histogram; one
+    flat_update_batch per shard per drained batch."""
+    hist, stats, counts, secs, peak = run_cluster_once(
+        conf, mode="free", total_grads=FREE_GRADS, coalesce=8,
+        record_telemetry=True, shards=SHARDS)
+    rec = cluster_record("sharded_free", hist, stats, counts, secs, peak)
+    rec.update(shards=SHARDS, shard_applied=stats["shard_applied"],
+               shard_busy_s=stats["shard_busy_s"],
+               telemetry_dropped=stats["telemetry_dropped"],
+               single_master_updates_per_s=single["updates_per_s"],
+               single_master_steady_updates_per_s=single[
+                   "steady_updates_per_s"])
+    emit(rec)
+    batches = sum(stats["coalesce_counts"].values())
+    if (stats["shard_applied"] != [FREE_GRADS] * SHARDS
+            or len(hist.gap) != FREE_GRADS
+            or counts["flat_update_batch"] != batches):
+        raise AssertionError(f"sharded_free: {stats['shard_applied']} "
+                             f"applied, {len(hist.gap)} telemetry rows, "
+                             f"{counts}, {batches} batches")
+    return rec
+
+
+def hot_ranges(spec):
+    """Three row ranges of the MLP's layout: the first layer's block (its
+    bias and weight), a middle range, the last rows."""
+    first = -(-(DIMS[1] + DIMS[0] * DIMS[1]) // 128)
+    mid = spec.rows // 2
+    return {"first_layer": (0, first), "middle": (mid - 8192, mid + 8192),
+            "last": (spec.rows - 4096, spec.rows)}
+
+
+def phase_hot_rows(card, conf):
+    """send_view over three row ranges of the 64-worker slab, read in
+    place (its pitch), against the full view's rows and the plain
+    version, each device-timed beside the full view: dana-zero's
+    view_rows (the v0 slab, N=1: bit for bit both) and the N=64
+    weighted send (bit for bit the full call's rows; the plain version's
+    tensordot within WEIGHTED_TOL); then a free run with declared
+    hot_rows and a dropout, whose rejoin pulls are served over the hot
+    rows."""
+    from repro_torch.cluster import ClusterConfig, FaultPlan, run_cluster
+    from repro_torch.core.flat import FlatSpec
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.kernels.flat_update import (FlatAlgorithm,
+                                                 flat_send_view,
+                                                 flat_send_view_ref)
+    from repro_torch.obs import MetricsRegistry
+    t_phase = time.perf_counter()
+    task, grad_fn, eval_fn, params0, algo = conf
+    spec = FlatSpec.from_tree(params0)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    fa = FlatAlgorithm(algo)
+    fa.spec = spec
+    rows = spec.rows
+    flat = {"theta": torch.randn((rows, 128), generator=gen, device="cuda"),
+            "v": torch.randn((WORKERS, rows, 128), generator=gen,
+                             device="cuda") * 0.1,
+            "t": 5, "lr_prev": np.float32(LR), "vscale": np.float32(1.0)}
+    flat["v0"] = flat["v"].sum(0)
+    w = torch.rand(WORKERS, generator=gen, device="cuda") + 0.5
+    c = np.float32(LR) * np.float32(0.9)
+    full_v0 = fa._view_flat(flat, 3)
+    full_w = flat_send_view(flat["theta"], flat["v"], w, c)
+    rec = {"phase": "hot_rows", "R": rows, "N": WORKERS, "ranges": {},
+           "full_view_device_ms_N1": device_ms(
+               lambda: fa._view_flat(flat, 3), "send_view"),
+           "full_view_device_ms_N64": device_ms(
+               lambda: flat_send_view(flat["theta"], flat["v"], w, c),
+               "send_view")}
+    for label, (r0, r1) in hot_ranges(spec).items():
+        n_rows = r1 - r0
+        part = fa.view_rows(flat, 3, r0, r1)
+        plain = flat_send_view_ref(flat["theta"][r0:r1],
+                                   flat["v0"][None][:, r0:r1],
+                                   torch.ones(1, device="cuda"),
+                                   fa._send_scale(flat))
+        strided = flat["v"][:, r0:r1]
+        part_w = flat_send_view(flat["theta"][r0:r1], strided, w, c)
+        plain_w = flat_send_view_ref(flat["theta"][r0:r1], strided, w, c)
+        scale = flat_send_view_ref(flat["theta"][r0:r1].abs(),
+                                   strided.abs(), w.abs(), -abs(c))
+        torch.cuda.synchronize()
+        r = {"rows": [r0, r1],
+             "strided": not strided.is_contiguous(),
+             "N1_bit_equal_to_full_view": bool(torch.equal(
+                 part, full_v0[r0:r1])),
+             "N1_bit_equal_to_plain": bool(torch.equal(part, plain)),
+             "N64_bit_equal_to_full_view": bool(torch.equal(
+                 part_w, full_w[r0:r1])),
+             "N64_max_abs_err_vs_plain": max_err(
+                 part_w, plain_w, WEIGHTED_TOL,
+                 f"send_view rows {label}", scale),
+             "device_ms_N1": device_ms(
+                 lambda: fa.view_rows(flat, 3, r0, r1), "send_view"),
+             "device_ms_N64": device_ms(
+                 lambda: flat_send_view(flat["theta"][r0:r1], strided, w,
+                                        c), "send_view")}
+        for n, key in ((1, "N1"), (WORKERS, "N64")):
+            nbytes = 4 * n_rows * 128 * (n + 2)
+            r[f"bytes_{key}"] = nbytes
+            r[f"bound_ms_{key}"], r[f"bound_by_{key}"] = card.bound(
+                nbytes, n_rows * 128 * (2 * n + 2))
+            r[f"device_share_of_bound_{key}"] = (r[f"bound_ms_{key}"]
+                                                 / r[f"device_ms_{key}"])
+        rec["ranges"][label] = r
+        if not (r["strided"] and r["N1_bit_equal_to_full_view"]
+                and r["N1_bit_equal_to_plain"]
+                and r["N64_bit_equal_to_full_view"]):
+            emit(rec)
+            raise AssertionError(f"hot_rows {label}: {r}")
+    del flat, full_v0, full_w
+    torch.cuda.empty_cache()
+    # a free run: workers 1-4 drop out and rejoin through hot-row pulls
+    hot = [None] * WORKERS
+    ranges = list(hot_ranges(spec).values())
+    for wid in range(1, 5):
+        hot[wid] = ranges[wid % len(ranges)]
+    # offline from master step 1 to HOT_GRADS - 16: each of workers 1-4
+    # sees the window at its second iteration, which starts after its
+    # first reply (one of the first 64 messages), and rejoins with a
+    # pull 16 messages before the end
+    cfg = ClusterConfig(num_workers=WORKERS, total_grads=HOT_GRADS,
+                        mode="free", coalesce=8, eval_every=HOT_GRADS,
+                        record_telemetry=False, device="cuda",
+                        hot_rows=tuple(hot),
+                        faults=FaultPlan(dropout=tuple(
+                            (wid, 1, HOT_GRADS - 16) for wid in range(1, 5))))
+    reg, stats = MetricsRegistry(), {}
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    hist = run_cluster(algo, grad_fn, params0, task.batch, cfg, eval_fn,
+                       stats_out=stats, metrics=reg)
+    torch.cuda.synchronize()
+    counts = launches()
+    snap = reg.snapshot()
+    rec.update(seconds=time.perf_counter() - t0,
+               phase_seconds=time.perf_counter() - t_phase,
+               updates_per_s=stats["updates_per_s"], launches=counts,
+               pulls=snap["pulls"]["value"],
+               pull_rows=snap["pull_rows"]["value"],
+               coalesce_counts=stats["coalesce_counts"],
+               eval_loss=hist.eval_loss)
+    emit(rec)
+    if (stats["applied"] != HOT_GRADS or not np.isfinite(hist.eval_loss).all()
+            or counts["flat_update_batch"]
+            != sum(stats["coalesce_counts"].values())):
+        raise AssertionError(f"hot_rows run: {stats['applied']} applied, "
+                             f"{counts}")
+    # the pulls were served over the hot rows, not the full view
+    if not (rec["pulls"] >= 1 and 0 < rec["pull_rows"]
+            < rec["pulls"] * rows):
+        raise AssertionError(f"hot_rows run: {rec['pulls']} pulls served "
+                             f"{rec['pull_rows']} rows")
+    return rec
+
+
+def offflat_run(name, dims, device, grads, workers=WORKERS, batch=BATCH):
+    """run_simulation with an off-flat member: (history, seconds)."""
+    from repro_torch.core.algorithms import make_algorithm
+    from repro_torch.core.engine import SimulationConfig, run_simulation
+    from repro_torch.core.types import HyperParams
+    from repro_torch.data.synthetic import ClassificationTask
+    from repro_torch.models.toy import make_classifier_fns
+    task = ClassificationTask(dim=dims[0], num_classes=dims[-1],
+                              batch_size=batch, device=device)
+    init, grad_fn, make_eval = make_classifier_fns(dims)
+    params0 = init(np.random.default_rng(0), device=device)
+    cfg = SimulationConfig(num_workers=workers, total_grads=grads,
+                           eval_every=grads, device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = run_simulation(make_algorithm(name, HyperParams(lr=LR,
+                                                           momentum=0.9)),
+                          grad_fn, params0, task.batch, cfg,
+                          make_eval(task.eval_batch()))
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return hist, time.perf_counter() - t0
+
+
+def phase_members_offflat():
+    """ssgd (SSGD_ROUNDS rounds of WORKERS gradients), easgd, dana-easgd
+    and yellowfin (OFFFLAT_GRADS messages each) through run_simulation at
+    full width on the tree path (no kernel): every loss finite, ssgd's
+    round count; then at OFFFLAT_CPU_DIMS with OFFFLAT_CPU_WORKERS
+    workers, batches of OFFFLAT_CPU_BATCH and OFFFLAT_CPU_GRADS messages
+    (ssgd: SSGD_ROUNDS rounds) the card's final parameters within
+    OFFFLAT_CPU_TOL relative L2 of the same code on the CPU."""
+    from repro_torch.core.types import tree_leaves
+    from repro_torch.kernels import launches, reset_launches
+    recs = {}
+    for name in OFFFLAT:
+        t_phase = time.perf_counter()
+        grads = SSGD_ROUNDS * WORKERS if name == "ssgd" else OFFFLAT_GRADS
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        hist, secs = offflat_run(name, DIMS, "cuda", grads)
+        counts = launches()
+        finite = (all(np.isfinite(hist.eval_loss))
+                  and all(bool(torch.isfinite(l).all())
+                          for l in tree_leaves(hist.final_params)))
+        rec = {"phase": f"member {name}", "algorithm": name, "dims": DIMS,
+               "workers": WORKERS, "grads": grads, "seconds": secs,
+               "messages_per_s": grads / secs, "rows": len(hist.step),
+               "eval_loss": hist.eval_loss, "launches": counts,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del hist
+        torch.cuda.empty_cache()
+        small = (SSGD_ROUNDS * OFFFLAT_CPU_WORKERS if name == "ssgd"
+                 else OFFFLAT_CPU_GRADS)
+        small_run = (OFFFLAT_CPU_DIMS, small, OFFFLAT_CPU_WORKERS,
+                     OFFFLAT_CPU_BATCH)
+        h_gpu, _ = offflat_run(name, small_run[0], "cuda", *small_run[1:])
+        h_cpu, _ = offflat_run(name, small_run[0], "cpu", *small_run[1:])
+        rec["width_256_rel_l2_card_vs_cpu"] = rel_l2(
+            [l.cpu() for l in tree_leaves(h_gpu.final_params)],
+            tree_leaves(h_cpu.final_params))
+        rec["width_256_events_equal"] = all(
+            getattr(h_gpu, k) == getattr(h_cpu, k)
+            for k in ("time", "worker", "lag", "step"))
+        rec["phase_seconds"] = time.perf_counter() - t_phase
+        emit(rec)
+        expect_rows = SSGD_ROUNDS if name == "ssgd" else grads
+        if not finite or rec["rows"] != expect_rows or any(counts.values()):
+            raise AssertionError(f"member {name}: finite {finite}, "
+                                 f"{rec['rows']} rows, launches {counts}")
+        if (rec["width_256_rel_l2_card_vs_cpu"] > OFFFLAT_CPU_TOL
+                or not rec["width_256_events_equal"]):
+            raise AssertionError(f"member {name}: the card and the CPU "
+                                 f"disagree: {rec}")
+        recs[name] = rec
+    return recs
 
 
 # -- mamba_scan ------------------------------------------------------------
@@ -2228,8 +2575,12 @@ def main():
     paths = {"main_path": main_rec,
              "cluster_deterministic": phase_cluster_deterministic(
                  conf, hist_e, final_e)}
+    paths["sharded_deterministic"] = phase_sharded_deterministic(
+        conf, hist_e, final_e)
     del hist_e, final_e
     paths["cluster_free"] = phase_cluster_free(conf)
+    paths["sharded_free"] = phase_sharded_free(conf, paths["cluster_free"])
+    paths["hot_rows"] = phase_hot_rows(card, conf)
     paths["cluster_legacy"] = phase_cluster_legacy(conf)
     del conf
     torch.cuda.empty_cache()
@@ -2237,11 +2588,15 @@ def main():
     paths["cluster_ga_deterministic"] = phase_cluster_deterministic(
         conf_ga, hist_e, final_e, phase="cluster_ga_deterministic",
         grads=GA_GRADS, expect=lambda c: c["gap_update"] == GA_GRADS)
+    paths["sharded_ga"] = phase_sharded_ga(conf_ga, final_e)
     del hist_e, final_e
     paths["cluster_ga_free"] = phase_cluster_ga_free(conf_ga)
     del conf_ga
     torch.cuda.empty_cache()
     paths.update({f"member {k}": r for k, r in phase_members().items()})
+    torch.cuda.empty_cache()
+    paths.update({f"member {k}": r
+                  for k, r in phase_members_offflat().items()})
     torch.cuda.empty_cache()
     model, params, info = serve_model()
     paths["serve_generate"] = phase_serve_generate(model, params, info)
@@ -2324,6 +2679,14 @@ def main():
         kernels[1][f"ms_{mode}_N64"] = sv[mode]["ms"]
     kernels[1]["library_device_ms"] = sv["main"]["library_device_ms"]
     kernels[1]["bit_equal"] = sv["main"]["bit_equal"]
+    # the row-range (strided) calls of the hot-row path
+    kernels[1]["launches_hot_rows"] = \
+        paths["hot_rows"]["launches"]["send_view"]
+    for label, r in paths["hot_rows"]["ranges"].items():
+        for key in ("rows", "device_ms_N1", "device_ms_N64", "bound_ms_N1",
+                    "bound_ms_N64", "bound_by_N64",
+                    "N64_max_abs_err_vs_plain"):
+            kernels[1][f"rows_{label}_{key}"] = r[key]
     for key in ("ms", "device_ms", "bound_ms", "plain_ms", "max_abs_err",
                 "bound_by", "last_bit_equal", "layout"):
         kernels[4][f"{key}_decode_S1"] = ms["decode"][key]

@@ -60,6 +60,12 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402  (puts src/ on the path)
 
 
+
+def _pitch(lib, rows):
+    """The slab pitch argument of ``send_view`` (since its row-range
+    form; a checkout from before it, through ``--src``, takes none)."""
+    return (rows * 128,) if len(lib.send_view.argtypes) == 11 else ()
+
 def per_call_us(fn, calls):
     for _ in range(min(calls, 200)):
         fn()
@@ -97,7 +103,7 @@ def host_pieces(calls):
         "stream_public": lambda: torch.cuda.current_stream(dev).cuda_stream,
         "ctypes_call": lambda: lib.send_view(
             theta.data_ptr(), slab.data_ptr(), w.data_ptr(), c, None, 1e-8,
-            out.data_ptr(), 64, 1, stream),
+            out.data_ptr(), 64, 1, *_pitch(lib, 64), stream),
         "count": lambda: _build.count("send_view"),
         "whole_call": lambda: send.flat_send_view(theta, slab, w, c),
         "torch_add": lambda: torch.add(theta, slab[0], alpha=-c),
@@ -213,7 +219,8 @@ def device_times(card):
             def bare():        # the C entry point alone: no checks, no
                 return lib.send_view(   # allocation, a stream at hand
                     theta.data_ptr(), slab.data_ptr(), w.data_ptr(),
-                    float(c), None, 1e-8, out_.data_ptr(), r, 1, stream)
+                    float(c), None, 1e-8, out_.data_ptr(), r, 1,
+                    *_pitch(lib, r), stream)
             rec["torch_add_ms"] = chip_smoke.time_ms(add)
             rec["torch_add_device_ms"] = chip_smoke.device_ms(add, "add")
             # in turns: the wrapper against torch.add, the bare entry

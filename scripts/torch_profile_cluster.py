@@ -2,7 +2,7 @@
 """Profile the PyTorch port's free-mode cluster on one GPU: where the
 time goes.
 
-    python3 scripts/torch_profile_cluster.py [--legacy]
+    python3 scripts/torch_profile_cluster.py [--legacy | --shards S]
 
 Runs ``chip_smoke.py``'s ``cluster_free`` configuration (the full-width
 DANA-Zero cluster, 64 worker threads, coalescing up to 8 messages,
@@ -18,7 +18,9 @@ and the mean span time per name (master apply, worker gradient, worker
 round trip).  With ``--legacy`` it profiles ``cluster_legacy`` instead
 (deterministic, ``use_kernel=True, flat=False``: one
 ``dana_master_update`` per leaf per message; 16 gradients to warm up,
-then 64).  Exits 2 without a CUDA device.
+then 64).  With ``--shards S`` it profiles the same free run on the
+row-sharded master (``sharded_free``: S shard threads, each shard's
+busy share printed too).  Exits 2 without a CUDA device.
 """
 import argparse
 import json
@@ -35,6 +37,7 @@ import chip_smoke  # noqa: E402  (puts src/ on the path)
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--legacy", action="store_true")
+    ap.add_argument("--shards", type=int, default=1)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_profile_cluster: no CUDA device", file=sys.stderr)
@@ -51,6 +54,9 @@ def main(argv=None):
     else:
         phase, grads, warm = "profile_cluster_free", chip_smoke.FREE_GRADS, 128
         kw = dict(mode="free", coalesce=8, record_telemetry=True)
+        if args.shards > 1:
+            phase = "profile_cluster_sharded"
+            kw["shards"] = args.shards
     chip_smoke.run_cluster_once(conf, total_grads=warm, **kw)   # warm-up
     acts = [torch.profiler.ProfilerActivity.CUDA]
     trace.enable()
@@ -77,6 +83,8 @@ def main(argv=None):
         "device_busy_s": busy, "device_idle_share": 1.0 - busy / wall,
         "coalesce_counts": stats["coalesce_counts"],
         "master_busy_share": stats["master_busy_s"] / wall,
+        "shard_busy_share": [b / wall for b in stats.get("shard_busy_s",
+                                                          [])],
         "launches": counts, "peak_mem_gb": peak / 1e9,
         "span_mean_ms": {k: s / n * 1e3 for k, (n, s) in spans.items()},
         "span_count": {k: n for k, (n, _) in spans.items()},

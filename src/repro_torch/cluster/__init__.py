@@ -15,17 +15,21 @@ gradient mailbox.  Three modes:
 The master supports *coalesced receive* (apply k queued messages in one
 launch of the CUDA kernel ``flat_update_batch``; the legacy per-message
 ``dana_update`` kernel on request) and a fault-injection layer (stalls,
-dropout/rejoin, message reordering).  The port runs one master on the
-thread backend; the row-sharded master and the process backend come
-later (ROADMAP.md).
+dropout/rejoin, message reordering).  ``ClusterConfig(shards=S)``
+splits the master into S row-range shard servers
+(``cluster/sharded.py``), threads on one card; workers push each
+gradient once and every shard consumes only its rows.  The process
+backend is not ported yet (ROADMAP.md item A5).
 """
 from .faults import FaultInjector, FaultPlan
-from .mailbox import GradMsg, Mailbox, Reply
+from .mailbox import FanoutMailbox, GradMsg, Mailbox, Reply
 from .master import Master
 from .runtime import ClusterConfig, run_cluster
+from .sharded import ShardedMaster
 from .worker import TurnGate, Worker
 
 __all__ = [
-    "ClusterConfig", "run_cluster", "Master", "Worker", "Mailbox",
-    "GradMsg", "Reply", "FaultPlan", "FaultInjector", "TurnGate",
+    "ClusterConfig", "run_cluster", "Master", "ShardedMaster", "Worker",
+    "Mailbox", "FanoutMailbox", "GradMsg", "Reply", "FaultPlan",
+    "FaultInjector", "TurnGate",
 ]

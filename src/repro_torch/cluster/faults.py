@@ -21,8 +21,10 @@ reproducible, and equal to the JAX package's for the same plan:
   Only observable when the coalescing window is > 1; permutation within
   the drained batch keeps the protocol deadlock-free.
 
-The per-shard reorder streams of the JAX package's row-sharded master
-come with that master (ROADMAP.md).
+Under the row-sharded master each shard server gets its OWN injector
+(``shard_id`` seeds an independent reorder substream), so out-of-order
+delivery on one shard's link is independent of the others;
+``reorder_shards`` confines reordering to the listed shard ids.
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ class FaultPlan:
     stall_scale: float = 5.0
     dropout: tuple = ()            # ((worker_id, out_step, rejoin_step), ...)
     reorder_prob: float = 0.0
+    reorder_shards: tuple | None = None   # shard ids to reorder; None = all
 
     @property
     def any_dropout(self) -> bool:
@@ -51,18 +54,22 @@ class FaultInjector:
 
     Stall draws use one per-worker substream each so that thread scheduling
     cannot change which iteration stalls; reorder draws live on the
-    master's own substream.
+    master's own substream (a shard's, seeded with its ``shard_id``).  A
+    shard's injector only reorders: build it with ``num_workers=0``.
     """
 
     def __init__(self, plan: FaultPlan, num_workers: int,
-                 mean_iter_time: float):
+                 mean_iter_time: float, shard_id: int | None = None):
         self.plan = plan
         self.mean_iter_time = mean_iter_time
+        self.shard_id = shard_id
         self._stall_rngs = [
             np.random.default_rng((plan.seed, 7919, wid))
             for wid in range(num_workers)
         ]
-        self._reorder_rng = np.random.default_rng((plan.seed, 104729))
+        self._reorder_rng = np.random.default_rng(
+            (plan.seed, 104729) if shard_id is None
+            else (plan.seed, 104729, shard_id))
         self._windows: dict[int, list[tuple[int, int]]] = {}
         for wid, out, back in plan.dropout:
             if back <= out:
@@ -95,9 +102,15 @@ class FaultInjector:
     def reorder(self, msgs: list) -> list:
         if self.plan.reorder_prob <= 0.0 or len(msgs) < 2:
             return msgs
+        if (self.plan.reorder_shards is not None
+                and self.shard_id is not None
+                and self.shard_id not in self.plan.reorder_shards):
+            return msgs
         if self._reorder_rng.random() >= self.plan.reorder_prob:
             return msgs
         perm = self._reorder_rng.permutation(len(msgs))
         if trace.enabled:
-            trace.instant("reorder", "faults", k=len(msgs))
+            trace.instant("reorder", "faults", k=len(msgs),
+                          shard=-1 if self.shard_id is None
+                          else self.shard_id)
         return [msgs[j] for j in perm]

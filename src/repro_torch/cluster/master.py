@@ -50,6 +50,13 @@ When the fused batch would cross an eval boundary, the serve loop
 splits it there, so evals always observe the state at exactly a
 multiple of ``eval_every`` applied messages.
 
+Pulls (a rejoining worker's request without a gradient) get the send of
+the worker's view; a pull that declares hot rows (``GradMsg.rows``) gets
+the view over those rows only (``FlatAlgorithm.view_rows``: the
+``send_view`` kernel reading that row range of the slab in place), on
+flat masters whose send writes no state.  ``run_serve_loop`` is also
+the row-sharded master's shard loop (``cluster/sharded.py``).
+
 Workers and master share one CUDA device and one stream (PyTorch's
 default): the device runs gradients and updates in the order the host
 issued them, which the mailbox and the reply slots fix.
@@ -225,6 +232,10 @@ class Master:
         # engine does)
         fam = family_spec_for(algo)
         self._sent_family = fam is not None and fam.sent_key is not None
+        # a send that writes state (a snapshot or the staleness stamp)
+        # cannot be answered by a pure hot-row view
+        self._stateful_send = fam is not None and fam.stateful_send
+        self._view_rows_fns: dict = {}    # (r0, r1) -> hot-row view
         # worker pull-ahead depth (staleness accounting only; the
         # workers do the pipelining, see _flush_telemetry)
         self._pipeline_depth = max(0, int(pipeline_depth))
@@ -276,10 +287,16 @@ class Master:
             view, self._tree_state = self.algo.send(self._tree_state, i)
         return view, self._step
 
-    def warm(self):
+    def warm(self, hot_ranges: tuple = ()):
         """Load every kernel library this master launches, before the
         workers start: the first use then builds and binds on this
-        thread, not inside the serve loop.  Reads and writes no state."""
+        thread, not inside the serve loop.  ``hot_ranges`` (the distinct
+        declared ``hot_rows``) get their row-view closures made here too
+        (flat masters whose send writes no state).  Reads and writes no
+        state and launches nothing."""
+        if self.state_is_flat and not self._stateful_send:
+            for r0, r1 in hot_ranges:
+                self._view_rows_fn(int(r0), int(r1))
         if self.device.type != "cuda":
             return
         if self.state_is_flat:
@@ -414,7 +431,29 @@ class Master:
         # record_eval's float() is the eval's .cpu() sync
         self.history.record_eval(time=t, step=step, loss=loss, metric=metric)
 
+    def _view_rows_fn(self, r0: int, r1: int):
+        """The hot-row view over rows [r0, r1), one closure a range,
+        made by ``warm`` for every declared range."""
+        fn = self._view_rows_fns.get((r0, r1))
+        if fn is None:
+            fa = self._flat_algo
+            fn = self._view_rows_fns.setdefault(
+                (r0, r1), lambda flat, i, a=r0, b=r1:
+                fa.view_rows(flat, i, a, b))
+        return fn
+
     def _pull_reply(self, m: GradMsg) -> int:
+        if (self.state_is_flat and m.rows is not None
+                and not self._stateful_send):
+            # hot-row pull: the view over the declared rows only (row
+            # local, bit-equal to the full view's rows).  Members whose
+            # send writes state take the full send below (Reply.rows
+            # stays None and the worker replaces its whole view).
+            r0, r1 = int(m.rows[0]), int(m.rows[1])
+            view = self._view_rows_fn(r0, r1)(self._flat_state,
+                                              m.worker_id)
+            m.respond(Reply(view=view, step=self._step, rows=(r0, r1)))
+            return r1 - r0
         view, step = self.initial_view(m.worker_id)
         m.respond(Reply(view=view, step=step))
         return int(view.shape[-2]) if self.state_is_flat else 0

@@ -6,12 +6,12 @@ single-threaded event loop.  In ``deterministic`` mode the run is
 step-for-step identical to the engine (tested bit for bit); ``paced`` and
 ``free`` modes trade that for actual wall-clock concurrency.
 
-The port runs the thread backend with one master.  Options of the JAX
-package's ``ClusterConfig`` that the port does not implement yet raise
-``NotImplementedError`` naming their ROADMAP.md item, never run
-something else: ``shards > 1``, ``shard_ranges`` and ``rebalance`` (the
-row-sharded master, A4), ``backend="process"`` (A5) and ``hot_rows``
-(hot-row pulls, A3).
+The port runs the thread backend, with one master or (``shards > 1``)
+the row-sharded master of ``cluster/sharded.py``, its shards threads on
+one card; ``hot_rows`` declares per-worker hot row ranges for pull-only
+requests.  The one option of the JAX package's ``ClusterConfig`` the
+port does not implement yet, ``backend="process"``, raises
+``NotImplementedError`` naming its ROADMAP.md item (A5).
 """
 from __future__ import annotations
 
@@ -35,6 +35,7 @@ from .clock import VirtualClock
 from .faults import FaultInjector, FaultPlan
 from .mailbox import Mailbox
 from .master import Master
+from .sharded import ShardedMaster
 from .worker import TurnGate, Worker
 
 MODES = ("deterministic", "paced", "free")
@@ -56,12 +57,18 @@ class ClusterConfig:
     # kernel on trees (DANA-Zero only) instead of the flat path
     # (``Master``'s own switch, here so run_cluster can reach it)
     flat: bool | None = None
-    shards: int = 1                 # row-range master shards: ROADMAP A4
+    shards: int = 1                 # row-range master shards (flat path)
     mailbox_capacity: int = 0       # 0 = unbounded
     rpc_timeout: float = 120.0
-    hot_rows: tuple | None = None   # hot-row pulls: ROADMAP A3
-    shard_ranges: tuple | None = None   # ROADMAP A4
-    rebalance: bool = False             # ROADMAP A4
+    # per-worker hot flat-row ranges for pull-only requests (num_workers
+    # entries, each None or (r0, r1)); masters that cannot honour a range
+    # (tree path, members whose send writes state) serve the full view
+    hot_rows: tuple | None = None
+    # row-sharded placement: optional initial shard row ranges, and
+    # online busy_s-driven rebalancing at eval watermarks
+    shard_ranges: tuple | None = None
+    rebalance: bool = False
+    rebalance_threshold: float = 1.1
     backend: str = "thread"         # "process": ROADMAP A5
     # pin the message schedule to strict round-robin worker order (live
     # modes): makes a run schedule-deterministic
@@ -117,11 +124,65 @@ def _validate(algo: Algorithm, cfg: ClusterConfig) -> None:
         raise ValueError("dropout/rejoin is not supported in deterministic "
                          "mode (it would leave the virtual clock); use "
                          "stalls, or a live mode")
-    if cfg.shards > 1 or cfg.shard_ranges is not None or cfg.rebalance:
-        _not_ported("the row-sharded master (shards > 1, shard_ranges, "
-                    "rebalance)", "A4")
-    if cfg.hot_rows is not None:
-        _not_ported("hot-row pulls (hot_rows)", "A3")
+    if cfg.rebalance and cfg.shards < 2:
+        raise ValueError("rebalance=True requires shards > 1 (there is "
+                         "nothing to move rows between)")
+    if cfg.shard_ranges is not None and cfg.shards < 2:
+        raise ValueError("shard_ranges requires shards > 1")
+    if cfg.shards > 1 and cfg.use_kernel is False:
+        raise ValueError("shards > 1 requires the flat kernel master "
+                         "(use_kernel must not be False)")
+    if cfg.shards > 1 and cfg.flat is False:
+        raise ValueError("shards > 1 requires the flat kernel master "
+                         "(flat must not be False: the legacy per-leaf "
+                         "kernel has no row ranges)")
+    if cfg.hot_rows is not None and len(cfg.hot_rows) != cfg.num_workers:
+        raise ValueError(f"hot_rows needs one entry per worker "
+                         f"({cfg.num_workers}), got {len(cfg.hot_rows)}")
+
+
+def _hot_rows(cfg: ClusterConfig, master, sharded: bool):
+    """Per-worker (hot row range, merge function) from ``cfg.hot_rows``:
+    ranges checked against the layout; none under rebalancing (ranges
+    move, so those runs pull full views).  A merge patches a partial
+    reply into a COPY of the worker's cached view."""
+    n = cfg.num_workers
+    hot_rows, merges = [None] * n, [None] * n
+    if cfg.hot_rows is None:
+        return hot_rows, merges
+    if not master.state_is_flat:
+        raise ValueError("hot_rows requires the flat kernel master "
+                         "(use_kernel must not be False)")
+    rows_total = master._flat_algo.spec.rows
+    rebalancing = sharded and master.rebalancer is not None
+    for wid, hr in enumerate(cfg.hot_rows):
+        if hr is None:
+            continue
+        r0, r1 = int(hr[0]), int(hr[1])
+        if not 0 <= r0 < r1 <= rows_total:
+            raise ValueError(f"hot_rows[{wid}]={hr} invalid: need "
+                             f"0 <= r0 < r1 <= {rows_total} "
+                             f"(r1 bound inclusive)")
+        if rebalancing:
+            continue
+        if sharded:
+            plans = tuple((s, max(r0, s0) - s0, min(r1, s1) - s0)
+                          for s, (s0, s1) in enumerate(master.ranges)
+                          if max(r0, s0) < min(r1, s1))
+
+            def merge(old, piece, plans=plans):
+                new = list(old)
+                for s, a, b in plans:
+                    new[s] = new[s].clone()
+                    new[s][a:b] = piece[s]
+                return tuple(new)
+        else:
+            def merge(old, piece, a=r0, b=r1):
+                new = old.clone()
+                new[a:b] = piece
+                return new
+        hot_rows[wid], merges[wid] = (r0, r1), merge
+    return hot_rows, merges
 
 
 def run_cluster(
@@ -155,13 +216,16 @@ def run_cluster(
     _validate(algo, cfg)
     n = cfg.num_workers
     deterministic = cfg.mode == "deterministic"
+    sharded = cfg.shards > 1
     use_kernel = cfg.use_kernel
     if use_kernel is None:
         # auto: the flat path in live modes (bit-equal to the tree path
         # for the elementwise members; dana-hetero and ga-asgd agree to
         # reduction-order tolerance); deterministic runs stay on the
-        # tree path, as in the JAX package
-        use_kernel = not deterministic and kernel_eligible(algo)
+        # tree path, as in the JAX package.  The sharded master exists
+        # only on the flat path (it refuses ineligible algorithms).
+        use_kernel = sharded or (not deterministic
+                                 and kernel_eligible(algo))
 
     injector = (FaultInjector(cfg.faults, n, cfg.exec_model.batch_size)
                 if cfg.faults is not None else None)
@@ -186,27 +250,55 @@ def run_cluster(
     # deterministic mode forces per-message receive so eval points and
     # event order match the engine exactly
     coalesce = 1 if deterministic else cfg.coalesce
-    mailbox = Mailbox(cfg.mailbox_capacity)
-    master = Master(
-        algo, state, mailbox=mailbox, history=history, stop=stop,
-        total_grads=cfg.total_grads, coalesce=coalesce,
-        use_kernel=use_kernel, flat=cfg.flat,
-        record_telemetry=cfg.record_telemetry, eval_fn=eval_fn,
-        eval_every=cfg.eval_every, injector=injector, time_fn=time_fn,
-        pipeline_depth=cfg.pipeline_depth)
+    if sharded:
+        shard_injectors = None
+        if cfg.faults is not None:
+            # reorder-only shard injectors (num_workers=0: no stall
+            # streams); worker stalls and dropout stay on `injector`
+            shard_injectors = [
+                FaultInjector(cfg.faults, 0, cfg.exec_model.batch_size,
+                              shard_id=s) for s in range(cfg.shards)]
+        master = ShardedMaster(
+            algo, state, shards=cfg.shards, history=history, stop=stop,
+            total_grads=cfg.total_grads, coalesce=coalesce,
+            record_telemetry=cfg.record_telemetry, eval_fn=eval_fn,
+            eval_every=cfg.eval_every, injectors=shard_injectors,
+            time_fn=time_fn, mailbox_capacity=cfg.mailbox_capacity,
+            ranges=cfg.shard_ranges, rebalance=cfg.rebalance,
+            rebalance_threshold=cfg.rebalance_threshold)
+        mailbox = master.frontdoor
+    else:
+        mailbox = Mailbox(cfg.mailbox_capacity)
+        master = Master(
+            algo, state, mailbox=mailbox, history=history, stop=stop,
+            total_grads=cfg.total_grads, coalesce=coalesce,
+            use_kernel=use_kernel, flat=cfg.flat,
+            record_telemetry=cfg.record_telemetry, eval_fn=eval_fn,
+            eval_every=cfg.eval_every, injector=injector, time_fn=time_fn,
+            pipeline_depth=cfg.pipeline_depth)
     del state, params
 
     # -- observability wiring (None-guarded: zero hot-path cost when off)
     publisher = None
     if metrics is not None:
         history.observer = history_observer(metrics)
-        master.metrics = serve_instruments(metrics)
+        serve_mx = serve_instruments(metrics)
+        for srv in (master.shards_ if sharded else (master,)):
+            srv.metrics = serve_mx           # shared: per-thread cells
     if metrics is not None or trace.enabled:
         # gauge sources are lock-free reads (Mailbox.depth contract),
         # sampled by a background thread — never by cluster threads
-        publisher = SnapshotPublisher(
-            {"mailbox_depth": lambda: mailbox.depth,
-             "busy_s/master": lambda: master.busy_s}, registry=metrics)
+        if sharded:
+            sources = {}
+            for s, (mb, srv) in enumerate(zip(master.mailboxes,
+                                              master.shards_)):
+                sources[f"mailbox_depth/shard{s}"] = \
+                    (lambda mb=mb: mb.depth)
+                sources[f"busy_s/shard{s}"] = (lambda srv=srv: srv.busy_s)
+        else:
+            sources = {"mailbox_depth": lambda: mailbox.depth,
+                       "busy_s/master": lambda: master.busy_s}
+        publisher = SnapshotPublisher(sources, registry=metrics)
 
     # warm-up pulls, in worker order on one thread (engine semantics)
     init_views = [master.initial_view(i) for i in range(n)]
@@ -226,7 +318,29 @@ def run_cluster(
         ]
         draw = (lambda wid: samplers[wid](wid))
 
-    if master.state_is_flat:
+    if sharded and master.rebalancer is not None:
+        # rebalancing wire: ranges move at run time, so the worker ships
+        # the FULL packed gradient (every shard gets the same buffer and
+        # takes its current rows); its view is the tuple of slices
+        spec = master.spec
+
+        def worker_grad(fv, batch):
+            return spec.pack(grad_fn(spec.unpack(spec.concat_rows(fv)),
+                                     batch))
+        if publisher is not None:
+            # the rebalancer's busy_s signal: the published series
+            master.rebalancer.series_fn = publisher.series
+    elif sharded:
+        # sharded wire: the worker joins its view from the shards'
+        # slices and splits its packed gradient into per-shard row
+        # slices (views of one contiguous buffer, no copy)
+        spec, subs = master.spec, master.subs
+
+        def worker_grad(fv, batch):
+            g = spec.pack(grad_fn(spec.unpack(spec.concat_rows(fv)),
+                                  batch))
+            return tuple(sub.take(g) for sub in subs)
+    elif master.state_is_flat:
         # flat wire format: the worker unpacks its (R, 128) view and
         # packs its gradient on its own thread — the tree<->flat traffic
         # never runs on the master's hot path.  The unpacked view's
@@ -238,9 +352,12 @@ def run_cluster(
             return spec.pack(grad_fn(spec.unpack(fv), batch))
     else:
         worker_grad = grad_fn
+    hot_rows, merges = _hot_rows(cfg, master, sharded)
 
-    # load the kernel libraries before any worker or the serve loop runs
-    master.warm()
+    # load the kernel libraries (and make the declared hot-row views)
+    # before any worker or the serve loop runs
+    master.warm(hot_ranges=tuple(sorted(
+        {hr for hr in hot_rows if hr is not None})))
 
     gate = TurnGate(n, stop) if cfg.pin_schedule else None
     workers = [
@@ -249,6 +366,7 @@ def run_cluster(
                init_view=init_views[wid], clock=clock, draw=draw,
                now_fn=now_fn, time_scale=cfg.time_scale, injector=injector,
                telemetry=cfg.record_telemetry, rpc_timeout=cfg.rpc_timeout,
+               hot_rows=hot_rows[wid], merge_view=merges[wid],
                gate=gate, pipeline_depth=cfg.pipeline_depth)
         for wid in range(n)
     ]
@@ -339,6 +457,13 @@ def run_cluster(
             flat=master.state_is_flat,
             shards=cfg.shards,
         )
+        if sharded:
+            stats_out["shard_applied"] = master.shard_applied
+            stats_out["shard_busy_s"] = master.shard_busy_s
+            stats_out["telemetry_dropped"] = master.tele_dropped
+            if master.rebalancer is not None:
+                stats_out["rebalance_moves"] = master.rebalance_moves
+                stats_out["shard_ranges"] = master.current_ranges
         if publisher is not None:
             stats_out["obs_series"] = publisher.series()
     return history

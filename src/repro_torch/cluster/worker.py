@@ -25,8 +25,14 @@ synchronous push-pull.  Each ``GradMsg`` is its own reply slot (see
 defers ``wait_reply``.
 
 The worker is oblivious to the master's layout: view and gradient are
-whatever its ``grad_fn`` consumes/produces — a tree (tree master) or a
-flat (R, 128) buffer (flat master).  It computes on the device its view
+whatever its ``grad_fn`` consumes/produces — a tree (tree master), a
+flat (R, 128) buffer (flat master), or a range-ordered tuple of row
+slices (sharded master, where ``mailbox`` is the ``FanoutMailbox`` and
+one push fans out to every shard).
+
+Hot-row pulls: a worker with ``hot_rows`` asks, when it pulls without a
+gradient (a rejoin), for just those flat rows; ``merge_view`` patches
+the partial reply into a copy of its cached view.  It computes on the device its view
 lives on, on the same stream as the master, so the device runs its
 gradient after the update that produced its view.
 """
@@ -83,6 +89,8 @@ class Worker(threading.Thread):
                  time_scale: float = 1e-3,
                  injector: FaultInjector | None = None,
                  telemetry: bool = True, rpc_timeout: float = 120.0,
+                 hot_rows: tuple[int, int] | None = None,
+                 merge_view: Callable | None = None,
                  gate: TurnGate | None = None,
                  pipeline_depth: int = 0):
         super().__init__(name=f"ps-worker-{wid}", daemon=True)
@@ -100,6 +108,11 @@ class Worker(threading.Thread):
         self.injector = injector
         self.telemetry = telemetry
         self.rpc_timeout = rpc_timeout
+        # the (r0, r1) flat-row range this worker declares hot, and the
+        # merge of a partial reply (set together by the runtime; a master
+        # that cannot honour the range replies with a full view)
+        self.hot_rows = hot_rows if merge_view is not None else None
+        self.merge_view = merge_view
         self.gate = gate
         # pull-ahead: up to this many pushes stay in flight (live modes;
         # deterministic mode serializes through the virtual clock and
@@ -135,7 +148,8 @@ class Worker(threading.Thread):
         return GradMsg(self.wid, grad,
                        self._view if (self.telemetry and grad is not None)
                        else None,
-                       self._view_step, t_send)
+                       self._view_step, t_send,
+                       rows=self.hot_rows if grad is None else None)
 
     # -- pipelined RPC halves (pipeline_depth > 0) -----------------------
     def _post(self, grad, t_send: float) -> GradMsg | None:
@@ -183,7 +197,13 @@ class Worker(threading.Thread):
                            pull_only=grad is None)
         if reply is None:
             return False
-        self._view, self._view_step = reply.view, reply.step
+        if reply.rows is not None:
+            # a partial (hot-row) view: patch the declared rows into a
+            # copy of the cached view
+            self._view = self.merge_view(self._view, reply.view)
+            self._view_step = reply.step
+        else:
+            self._view, self._view_step = reply.view, reply.step
         if grad is not None:
             self.grads_sent += 1
         return True

@@ -26,8 +26,10 @@ Ported (paper algorithm numbers in brackets):
   nadam-asgd    one shared Nadam (m, u) pair at the master   [Sec. 7]
   dana-nadam    per-worker first moments + Nadam look-ahead  [Sec. 7]
   ga-asgd       gap-aware penalty (Barkai et al. 2020)       [App. C]
-The synchronous baseline (ssgd), easgd, dana-easgd and yellowfin are not
-ported yet (ROADMAP.md, item A1).
+  ssgd          synchronous baseline (engine-driven barrier) [App. C]
+  yellowfin     simplified closed-loop autotuner             [baseline]
+  easgd         elastic averaging, per-worker replicas       [Zhang et al.]
+  dana-easgd    easgd against the predicted centre           [Sec. 7]
 
 State layout: tensors for the parameter-shaped entries; the step ``t`` is
 a Python int and ``lr_prev`` / ``vscale`` / ``tau`` are host
@@ -35,11 +37,13 @@ a Python int and ``lr_prev`` / ``vscale`` / ``tau`` are host
 the JAX package, so the two packages' states agree bit for bit.  The
 per-worker scalars (sa-asgd's ``sent_t``, dana-hetero's ``last_t`` and
 ``interval``) are host float32 numpy vectors, replaced on every update.
-ga-asgd's ``avg_step`` is a 0-d tensor on the state's device: it depends
-on norms of device tensors, and keeping it there spares the loop a sync.
+ga-asgd's ``avg_step`` and yellowfin's seven tuner scalars are 0-d
+tensors on the state's device: they depend on norms of device tensors,
+and keeping them there spares the loop a sync.
 ``theta0`` is replaced by a new tree on every receive (views handed out
 earlier stay valid); per-worker stacks (``v``, ``m``, ``sent``) are
-updated in place, one row per message.
+updated in place, one row per message (easgd's replicas ``x`` too; its
+send hands out a copy of row i).
 
 Note on NAG vs heavy-ball at the master: Appendix Algs. 8/9 print the
 heavy-ball update ``theta <- theta - eta*v`` while footnote 1 and the text
@@ -58,7 +62,7 @@ from .schedules import Schedule, constant, momentum_correction
 from .types import (HyperParams, Pytree, sqrt_rn, tree_add, tree_axpy,
                     tree_gap, tree_index, tree_l2, tree_leaves, tree_map,
                     tree_mul, tree_scale, tree_set_index, tree_size,
-                    tree_sub, tree_zeros_like)
+                    tree_sq_l2, tree_sub, tree_zeros_like)
 
 _F32 = np.float32
 
@@ -670,21 +674,164 @@ class GapAware(Algorithm):
         return state
 
 
+class SSGD(Algorithm):
+    """Synchronous baseline: the engine gathers one gradient per worker
+    at a barrier and calls ``receive_all`` with their mean (Bengio-NAG
+    update)."""
+
+    name = "ssgd"
+
+    def init(self, params, num_workers):
+        s = self._base_state(params, num_workers)
+        s["v"] = tree_zeros_like(s["theta0"])
+        return s
+
+    def receive_all(self, state, mean_grad):
+        g = _F32(self.hp.momentum)
+        lr, corr = self._lr_and_correction(state)
+        state = dict(state)
+        v = tree_axpy(g, tree_scale(corr, state["v"]), mean_grad)
+        upd = tree_axpy(g, v, mean_grad) if self.nesterov else v
+        state["theta0"] = tree_axpy(-lr, upd, state["theta0"])
+        state["v"] = v
+        state["t"] = state["t"] + 1
+        state["lr_prev"] = lr
+        return state
+
+    def receive(self, state, i, grad, now=0.0):  # the engine: receive_all
+        return self.receive_all(state, grad)
+
+
+class YellowFin(Algorithm):
+    """Simplified closed-loop YellowFin (Zhang & Mitliagkas 2019).
+
+    EMA estimates of the curvature range (h_min, h_max) from squared
+    gradient norms, of the gradient norm and of the distance to the
+    optimum set the momentum from the paper's robustness condition:
+    sqrt(mu) >= max((sqrt(h_max/h_min)-1)/(sqrt(h_max/h_min)+1),
+                    1 - sqrt(lr * ||g||^2 / D)).
+    The seven tuner scalars are 0-d f32 tensors on the state's device;
+    the debias term b^(t+1) is a host f32 scalar (``t`` is on the host).
+    """
+
+    name = "yellowfin"
+    BETA = 0.999
+
+    def init(self, params, num_workers):
+        s = self._base_state(params, num_workers)
+        s["v"] = tree_zeros_like(s["theta0"])
+        dev = tree_leaves(s["theta0"])[0].device
+
+        def scalar(x):
+            return torch.tensor(x, dtype=torch.float32, device=dev)
+        s.update(h_min=scalar(1e12), h_max=scalar(1e-12),
+                 g2_ema=scalar(0.0), g_norm_ema=scalar(0.0),
+                 dist_ema=scalar(0.0), mu=scalar(0.0),
+                 lr_yf=scalar(self.hp.lr))
+        return s
+
+    def receive(self, state, i, grad, now=0.0):
+        state = dict(state)
+        b, c = _F32(self.BETA), _F32(1 - self.BETA)
+        g2 = tree_sq_l2(grad)
+        debias = _F32(1.0) - b ** np.maximum(_F32(state["t"]) + _F32(1),
+                                             _F32(1))
+        g2_ema = b * state["g2_ema"] + c * g2
+        gn_ema = b * state["g_norm_ema"] + c * sqrt_rn(g2)
+        h_min = torch.minimum(b * state["h_min"] + c * g2, g2)
+        h_max = torch.maximum(b * state["h_max"] + c * g2, g2)
+        dist = b * state["dist_ema"] + c * (
+            gn_ema / torch.clamp(g2_ema, min=1e-12))
+        ratio = sqrt_rn(torch.clamp(h_max, min=1e-12)
+                        / torch.clamp(h_min, min=1e-12))
+        mu_curv = torch.square((ratio - 1.0) / (ratio + 1.0))
+        lr = state["lr_yf"]
+        mu_noise = torch.square(1.0 - sqrt_rn(torch.clamp(
+            lr * g2 / torch.clamp(dist / debias, min=1e-12), 0.0, 1.0)))
+        mu = torch.clamp(torch.maximum(mu_curv, mu_noise), 0.0, 0.99)
+        v = tree_axpy(mu, state["v"], tree_scale(lr, grad))
+        state["theta0"] = tree_sub(state["theta0"], v)
+        state.update(v=v, g2_ema=g2_ema, g_norm_ema=gn_ema, h_min=h_min,
+                     h_max=h_max, dist_ema=dist, mu=mu,
+                     t=state["t"] + 1, lr_prev=_F32(self.hp.lr))
+        return state
+
+
+class EASGD(Algorithm):
+    """Elastic Averaging SGD (Zhang et al. 2015): each worker trains its
+    own replica with momentum SGD; centre and replica pull toward each
+    other with elastic force alpha every update (the tau=1 "EAMSGD"
+    variant).
+
+    State: the centre theta0 (the deployable parameters), per-worker
+    replicas x^i and momenta v^i as (N, ...) stacks.  ``send`` hands
+    worker i a copy of its replica."""
+
+    name = "easgd"
+
+    def __init__(self, hp: HyperParams = HyperParams(),
+                 schedule: Schedule | None = None, nesterov: bool = True,
+                 alpha: float = 0.1):
+        super().__init__(hp, schedule, nesterov)
+        self.alpha = alpha
+
+    def init(self, params, num_workers):
+        s = self._base_state(params, num_workers)
+        s["x"] = _stacked_broadcast(s["theta0"], num_workers)
+        s["v"] = _stacked_zeros(s["theta0"], num_workers)
+        return s
+
+    def send(self, state, i):
+        # a copy: row i of the stack is written in place by receive
+        return tree_map(torch.clone, tree_index(state["x"], i)), state
+
+    def _center_target(self, state, i):
+        return state["theta0"]
+
+    def receive(self, state, i, grad, now=0.0):
+        g, a = _F32(self.hp.momentum), _F32(self.alpha)
+        lr = self.schedule(state["t"])
+        state = dict(state)
+        xi = tree_index(state["x"], i)
+        vi = tree_axpy(g, tree_index(state["v"], i), grad)
+        upd = tree_axpy(g, vi, grad) if self.nesterov else vi
+        xi = tree_axpy(-lr, upd, xi)
+        # elastic exchange against the (possibly predicted) centre
+        diff = tree_sub(xi, self._center_target(state, i))
+        xi = tree_axpy(-a, diff, xi)
+        state["theta0"] = tree_axpy(a, diff, state["theta0"])
+        state["x"] = tree_set_index(state["x"], i, xi)
+        state["v"] = tree_set_index(state["v"], i, vi)
+        state["t"] = state["t"] + 1
+        state["lr_prev"] = lr
+        return state
+
+
+class DanaEASGD(EASGD):
+    """DANA + EASGD: the elastic force pulls toward the PREDICTED centre
+    theta0 - alpha * lr * gamma * sum_j v^j, where the centre will be
+    after the other replicas' momenta push it (paper Sec. 7)."""
+
+    name = "dana-easgd"
+
+    def _center_target(self, state, i):
+        g = _F32(self.hp.momentum)
+        lr = self.schedule(state["t"])
+        vsum = tree_map(lambda v: torch.sum(v, dim=0), state["v"])
+        return tree_axpy((_F32(-self.alpha) * lr) * g, vsum,
+                         state["theta0"])
+
+
 REGISTRY: dict[str, type[Algorithm]] = {
     cls.name: cls for cls in [
         ASGD, SAASGD, NagASGD, MultiASGD, DCASGD, LWP, DanaZero, DanaSlim,
-        DanaDC, DanaHetero, NadamASGD, DanaNadam, GapAware]
+        DanaDC, DanaHetero, SSGD, YellowFin, NadamASGD, DanaNadam, EASGD,
+        DanaEASGD, GapAware]
 }
-
-# the rest of the JAX package's registry: ROADMAP.md item A1
-NOT_PORTED = ("ssgd", "easgd", "dana-easgd", "yellowfin")
 
 
 def make_algorithm(name: str, hp: HyperParams = HyperParams(),
                    schedule: Schedule | None = None, **kw) -> Algorithm:
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"algorithm {name!r} is not ported yet: ROADMAP.md item A1")
     if name not in REGISTRY:
         raise ValueError(f"unknown algorithm {name!r}; "
                          f"choose from {sorted(REGISTRY)}")

@@ -8,7 +8,9 @@ compute gradients, and push updates.  The master applies whichever
 
 The event order depends only on ``GammaModel``'s numpy stream, so the
 port and the JAX package replay the same events (time, worker, lag,
-step) for the same seed.
+step) for the same seed.  ``ssgd`` runs synchronous rounds instead
+(``_run_ssgd``): a barrier over the slowest worker's draw, one mean
+gradient a round.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ from typing import Any, Callable
 
 import torch
 
-from .algorithms import Algorithm
+from .algorithms import SSGD, Algorithm
 from .gamma import GammaModel
 from .metrics import History
 from .types import Pytree, tree_gap, tree_l2, tree_map
@@ -48,7 +50,8 @@ def run_simulation(
     cfg: SimulationConfig,
     eval_fn: Callable[[Pytree], Any] | None = None,
 ) -> History:
-    """Run one asynchronous training simulation on ``cfg.device``.
+    """Run one asynchronous (or synchronous, for SSGD) training
+    simulation on ``cfg.device``.
 
     grad_fn(params, batch) -> grad tree
     next_batch(worker_id, counter) -> batch          (host-side, deterministic)
@@ -57,9 +60,6 @@ def run_simulation(
     ``params0`` (a tree of tensors or numpy arrays) is copied to
     ``cfg.device``; batches must already live there.
     """
-    if algo.name == "ssgd":
-        raise NotImplementedError("ssgd (the synchronous barrier engine) "
-                                  "is not ported yet: ROADMAP.md")
     n = cfg.num_workers
     history = History()
     draw = cfg.exec_model.sampler(n)
@@ -72,6 +72,16 @@ def run_simulation(
         history.record_eval(time=time, step=step, loss=loss, metric=metric)
 
     params = tree_map(lambda l: torch.as_tensor(l).to(cfg.device), params0)
+    if isinstance(algo, SSGD):
+        if cfg.use_kernel:
+            raise ValueError(
+                "ssgd is not kernel-eligible (it needs the synchronous "
+                "barrier, not the per-message flat path)")
+        state = _run_ssgd(algo, grad_fn, next_batch, cfg, draw,
+                          algo.init(params, n), history, _eval)
+        history.final_params = algo.master_params(state)
+        return history
+
     # flat execution: same loop, state packed once into (R, 128) buffers
     # and receive->send applied by the batched kernel
     algo_exec = algo
@@ -124,3 +134,31 @@ def run_simulation(
         heapq.heappush(heap, (t_now + draw(i), i))
     history.final_params = algo_exec.master_params(state)
     return history
+
+
+def _run_ssgd(algo, grad_fn, next_batch, cfg, draw, state, history, _eval):
+    """Synchronous rounds: every worker computes on the same parameters;
+    the round ends when the slowest worker does (the paper's SSGD cost
+    model, App. C).  The batches are drawn in worker order and the mean
+    is summed in that order, as the JAX package sums it."""
+    n = cfg.num_workers
+    rounds = cfg.total_grads // n
+    t_now = 0.0
+    counters = [0] * n
+    for r in range(rounds):
+        t_now += max(draw(i) for i in range(n))       # barrier
+        batches = [next_batch(i, counters[i]) for i in range(n)]
+        for i in range(n):
+            counters[i] += 1
+        theta = algo.master_params(state)
+        grads = [grad_fn(theta, b) for b in batches]
+        mean = tree_map(lambda *g: sum(g) / len(g), *grads)
+        gnorm = tree_l2(mean)
+        state = algo.receive_all(state, mean)
+        if cfg.record_telemetry:
+            history.record(time=t_now, step=state["t"], worker=-1, lag=0,
+                           gap=0.0, grad_norm=gnorm)
+        grads_done = (r + 1) * n
+        if grads_done % max(cfg.eval_every, 1) < n or r == rounds - 1:
+            _eval(algo.master_params(state), t_now, state["t"])
+    return state

@@ -21,6 +21,13 @@ padding into real rows and norms over flat buffers equal tree norms.
 ``unpack`` returns VIEWS into the buffer it is given (no copy).  A caller
 that keeps an unpacked tree past the next in-place update of that buffer
 must copy it first (``FlatAlgorithm.master_params`` does).
+
+Every family update rule is elementwise per row, so a contiguous row
+range [r0, r1) is a self-contained shard of the state: ``row_ranges``
+splits the rows into S ranges (the JAX package's boundaries exactly) and
+``FlatSubSpec`` views one range of a buffer; the row-sharded master
+(``cluster/sharded.py``) builds on them, and ``concat_rows`` reassembles
+the shards in range order.
 """
 from __future__ import annotations
 
@@ -103,6 +110,51 @@ class FlatSpec:
                                        self.shapes, self.dtypes)
         ]
         return tree_unflatten(self.treedef, leaves)
+
+
+    # -- row sharding ----------------------------------------------------
+    def row_ranges(self, shards: int) -> tuple[tuple[int, int], ...]:
+        """Split [0, rows) into ``shards`` contiguous non-empty ranges.
+
+        Boundaries are ``round(s * rows / shards)`` (Python's rounding,
+        half to even) snapped down to ``row_align`` multiples when that
+        keeps every range non-empty; tiny states keep the plain split,
+        so any S <= rows works.  The ranges cover [0, rows) in order."""
+        if not 1 <= shards <= self.rows:
+            raise ValueError(
+                f"need 1 <= shards <= rows={self.rows}, got {shards}")
+        bounds = [round(s * self.rows / shards) for s in range(shards + 1)]
+        for s in range(1, shards):
+            snapped = (bounds[s] // self.row_align) * self.row_align
+            if bounds[s - 1] < snapped:
+                bounds[s] = snapped
+        return tuple((bounds[s], bounds[s + 1]) for s in range(shards))
+
+    def subspec(self, r0: int, r1: int) -> "FlatSubSpec":
+        return FlatSubSpec(self, r0, r1)
+
+    def concat_rows(self, pieces) -> torch.Tensor:
+        """Range-ordered shard slices ((r, 128) or (N, r, 128) each) ->
+        one full buffer, one ``torch.cat`` along the row axis."""
+        return torch.cat(list(pieces), dim=-2)
+
+
+class FlatSubSpec:
+    """One contiguous row range [r0, r1) of a ``FlatSpec`` layout;
+    ``take`` views those rows of a full buffer (the sharded worker's
+    split of its packed gradient)."""
+
+    def __init__(self, spec: FlatSpec, r0: int, r1: int):
+        if not 0 <= r0 < r1 <= spec.rows:
+            raise ValueError(f"bad row range [{r0}, {r1}) for "
+                             f"rows={spec.rows}")
+        self.spec = spec
+        self.r0, self.r1 = int(r0), int(r1)
+        self.rows = self.r1 - self.r0
+
+    def take(self, buf: torch.Tensor) -> torch.Tensor:
+        """(.., rows, 128) -> a view of (.., r1-r0, 128)."""
+        return buf[..., self.r0:self.r1, :]
 
 
 class ScalarLane:

@@ -35,7 +35,8 @@ def _bind(lib) -> None:
         _F, _F, _F,                               # b2, 1 - b2, eps
         _P]                                       # stream
     lib.flat_update_batch.restype = _I
-    lib.send_view.argtypes = [_P, _P, _P, _F, _P, _F, _P, _LL, _I, _P]
+    lib.send_view.argtypes = [_P, _P, _P, _F, _P, _F, _P, _LL, _I, _LL,
+                              _P]                 # ..., rows, n, pitch
     lib.send_view.restype = _I
 
 

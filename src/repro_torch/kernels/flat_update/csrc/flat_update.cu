@@ -12,6 +12,10 @@
 //
 // send_view replaces src/repro/kernels/flat_update/send.py::_send_view_pallas
 // and computes view = theta - c * sum_m w[m] * slab[m] [/ (sqrt(u2) + eps)].
+// The slab is read where it lies: worker m's R rows are contiguous and
+// start `pitch` elements after worker m-1's, so a row range slab[:, r0:r1]
+// of a larger (N, R_full, 128) slab (a hot-row pull, a shard's reply) is
+// reduced in place, with no copy.  A contiguous slab has pitch R*128.
 // It runs at 89-93 % of its bytes bound in all three of its modes (N=1,
 // rate-weighted and adaptive N=64; H100, scripts/torch_host_cost.py), so
 // it keeps this element-parallel design; its call at N=1 is mostly the
@@ -37,7 +41,8 @@
 //   4*R*128*(2 + 2[v0] + 2[u2] + 2u(1 + [sent]) + k + k + k[telemetry])
 // bytes (theta in/out, v0/u2 in/out, u slab rows (and sent rows) in/out,
 // k gradients in, k hats out, k pre-thetas out), plus N slab rows per
-// message for the weighted hat; send_view moves 4*R*128*(N + 2 + [u2]).
+// message for the weighted hat; send_view moves 4*R*128*(N + 2 + [u2])
+// whatever its pitch.
 // Both do a few f32 operations per element, far below the card's
 // operations-per-byte balance.
 //
@@ -187,7 +192,8 @@ __global__ void send_view_kernel(const float* __restrict__ theta,
                                  const float* __restrict__ slab,
                                  const float* __restrict__ w, float c,
                                  const float* __restrict__ u2, float eps,
-                                 float* __restrict__ out, size_t e4, int n) {
+                                 float* __restrict__ out, size_t e4, int n,
+                                 size_t pitch4) {
   const size_t stride = (size_t)gridDim.x * blockDim.x;
   for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < e4;
        e += stride) {
@@ -197,7 +203,7 @@ __global__ void send_view_kernel(const float* __restrict__ theta,
 #pragma unroll
     for (int q = 0; q < 4; ++q) ws[q] = w[0] * x[q];
     for (int m = 1; m < n; ++m) {
-      load4(slab, (size_t)m * e4 + e, x);
+      load4(slab, (size_t)m * pitch4 + e, x);
 #pragma unroll
       for (int q = 0; q < 4; ++q) ws[q] = ws[q] + w[m] * x[q];
     }
@@ -245,11 +251,14 @@ extern "C" int flat_update_batch(float* theta, float* v, float* v0,
   return (int)cudaGetLastError();
 }
 
+// pitch: elements from worker m's first row to worker m+1's (a multiple
+// of 4, at least rows*128; the wrapper checks it).
 extern "C" int send_view(const float* theta, const float* slab,
                          const float* w, float c, const float* u2, float eps,
-                         float* out, long long rows, int n, void* stream) {
+                         float* out, long long rows, int n, long long pitch,
+                         void* stream) {
   const size_t e4 = (size_t)rows * 32;
   send_view_kernel<<<blocks_for(e4), kThreads, 0, (cudaStream_t)stream>>>(
-      theta, slab, w, c, u2, eps, out, e4, n);
+      theta, slab, w, c, u2, eps, out, e4, n, (size_t)pitch / 4);
   return (int)cudaGetLastError();
 }

@@ -48,6 +48,16 @@ order, so the loop never waits on the device for a per-message scalar.
 ``convert.flat_state_from_numpy`` and ``unpack_state`` translate between
 the two forms.  ga-asgd's ``avg_step`` is the exception: it is a norm of
 device state, so it stays a 0-d tensor on the device, updated in place.
+
+The row-sharded master (``cluster/sharded.py``) runs the same executor
+on row ranges: ``slice_flat`` / ``merge_flat`` cut and join states,
+``view_rows`` sends over a row range (also the hot-row pull), and
+ga-asgd, whose penalty needs a norm over every row, runs message by
+message through ``gap_partial`` / ``apply_gap_message`` /
+``finish_gap_message`` with the shards' partial sums exchanged between
+them (plain torch ops, as the JAX package's are plain jnp).
+``eligibility_matrix()`` is the documented contract, the JAX package's
+dict for all 17 names.
 """
 from __future__ import annotations
 
@@ -63,6 +73,7 @@ from ...core.algorithms import (ASGD, DCASGD, LWP, SAASGD, DanaDC,
 from ...core.flat import (RATE_INTERVAL, RATE_LANE, RATE_LAST_T, SENT_LANE,
                           SENT_STEP, FlatSpec)
 from ...core.schedules import momentum_correction
+from ...core.types import sqrt_rn
 from .kernel import flat_update_batch, flat_update_batch_gap
 from .ref import flat_master_update_batch_ref
 from .send import flat_send_view
@@ -95,9 +106,17 @@ class FamilySpec:
     #                              SENT_STEP lane only, no snapshot slab)
 
     @property
+    def elementwise(self) -> bool:
+        """True iff every term is per-row local, the property row
+        sharding rests on (the weighted hat mixes slab rows within one
+        row, so dana-hetero is)."""
+        return not self.gap_aware
+
+    @property
     def stateful_send(self) -> bool:
         """True iff a send WRITES master state (the sent-snapshot slab
-        and/or the staleness lane stamp)."""
+        and/or the staleness lane stamp), so a pure view (a hot-row
+        pull) is no valid send for it."""
         return self.sent_key is not None or self.staleness_lr
 
 
@@ -205,6 +224,15 @@ def kernel_eligible(algo) -> bool:
     return family_spec_for(algo) is not None
 
 
+def shard_bitexact(algo) -> bool:
+    """True iff the row-sharded master reproduces the single flat master
+    bit for bit for ``algo`` (elementwise update rules only: the
+    gap-aware penalty sums per-shard norm partials, which reorders the
+    reduction)."""
+    fam = family_spec_for(algo)
+    return fam is not None and fam.elementwise
+
+
 # the flat-eligible set (the JAX package's, all ported)
 FLAT_ELIGIBLE = ("asgd", "dana-dc", "dana-hetero", "dana-nadam",
                  "dana-slim", "dana-zero", "dc-asgd", "ga-asgd", "lwp",
@@ -213,6 +241,33 @@ FLAT_ELIGIBLE = ("asgd", "dana-dc", "dana-hetero", "dana-nadam",
 # kernel (everyone else sends a copy of theta)
 SEND_KERNEL = ("dana-dc", "dana-hetero", "dana-nadam", "dana-zero",
                "lwp")
+
+
+def eligibility_matrix() -> dict[str, dict[str, bool]]:
+    """{algorithm name: {flat, send_kernel, schedule, shard,
+    shard_bitexact}} for the whole registry, the JAX package's contract:
+
+    * ``flat`` -- the hot path runs on the flat batched kernels;
+    * ``send_kernel`` -- the send is a look-ahead built by ``send_view``
+      (the others send theta itself);
+    * ``schedule`` -- flat execution supports moving lr schedules;
+    * ``shard`` -- the row-sharded master supports it;
+    * ``shard_bitexact`` -- sharded == single master bit for bit.
+    """
+    from ...core.algorithms import REGISTRY, make_algorithm
+    out = {}
+    for name in sorted(REGISTRY):
+        algo = make_algorithm(name)
+        fam = family_spec_for(algo)
+        send = send_spec_for(algo, fam)
+        out[name] = {
+            "flat": fam is not None,
+            "send_kernel": send is not None and send.source is not None,
+            "schedule": fam is not None,
+            "shard": fam is not None,
+            "shard_bitexact": fam is not None and fam.elementwise,
+        }
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -260,6 +315,44 @@ def pack_state(algo, state: dict, spec: FlatSpec | None = None):
     if "vscale" in state:
         flat["vscale"] = _F32(state["vscale"])
     return flat, spec
+
+
+_ROW_KEYS = ("theta", "v", "v0", "u2", "sent")   # buffers laid out by row
+
+
+def _copy(x):
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, np.ndarray):
+        return x.copy()
+    return x                       # host scalars are immutable
+
+
+def slice_flat(flat: dict, r0: int, r1: int) -> dict:
+    """Rows [r0, r1) of a flat state, as a state of its own.
+
+    The row buffers (``_ROW_KEYS``; the (N, R, 128) slabs keep their
+    worker axis) become contiguous copies of their row range, so the
+    batched kernel keeps contiguous inputs and shards never share a
+    buffer; avg_step and the host lanes are copied, the host scalars
+    shared (they are replaced, never written).  Every elementwise rule
+    is per row, so ``apply_batch`` on the slice advances exactly its
+    rows, bit for bit the full state's."""
+    return {k: (v[..., r0:r1, :].clone(memory_format=torch.contiguous_format)
+                if k in _ROW_KEYS else _copy(v))
+            for k, v in flat.items()}
+
+
+def merge_flat(pieces: list[dict]) -> dict:
+    """Range-ordered shard states -> one full flat state: the row buffers
+    concatenated along the row axis, everything else the first shard's
+    (every shard applies every message with the same timestamps, so
+    their scalars and lanes are the same)."""
+    out = dict(pieces[0])
+    for k in _ROW_KEYS:
+        if k in out:
+            out[k] = torch.cat([p[k] for p in pieces], dim=-2)
+    return out
 
 
 def unpack_state(algo, flat: dict, spec: FlatSpec) -> dict:
@@ -361,9 +454,9 @@ class FlatAlgorithm:
     def __init__(self, algo):
         fam = family_spec_for(algo)
         if fam is None:
-            raise NotImplementedError(
-                f"{algo.name!r} has no flat path in the port yet "
-                f"(ROADMAP.md item A1)")
+            raise ValueError(
+                f"{algo.name!r} is not kernel-eligible; flat execution "
+                f"covers exactly the asynchronous update family")
         self.algo = algo
         self.fam = fam
         self.send_spec = send_spec_for(algo, fam)
@@ -446,13 +539,16 @@ class FlatAlgorithm:
             tau=flat["tau"] if sp.tau else None,
             vscale=flat.get("vscale", _F32(1.0)) if sp.vscale else None)
 
-    def _view_flat(self, flat: dict, i=0):
-        """The view the family's send computes, on flat rows: the send
-        view kernel for every look-ahead member, a copy of theta for the
-        rest (the view escapes to a worker; theta is updated in place)."""
+    def _view_flat(self, flat: dict, i=0, rows=None):
+        """The view the family's send computes, on flat rows (on rows
+        [r0, r1) only with ``rows``): the send view kernel for every
+        look-ahead member, a copy of theta for the rest (the view
+        escapes to a worker; theta is updated in place)."""
         sp = self.send_spec
+        r0, r1 = (0, flat["theta"].shape[0]) if rows is None else rows
+        theta = flat["theta"][r0:r1]
         if sp.source is None:
-            return flat["theta"].clone()
+            return theta.clone()
         slab = flat["v0"][None] if sp.source == "v0" else flat["v"]
         if sp.weights == "rate":
             w = torch.from_numpy(self._rate_weights(flat, i)).to(
@@ -464,10 +560,22 @@ class FlatAlgorithm:
                 w = self._unit_weights.setdefault(key, torch.ones(
                     (slab.shape[0],), dtype=torch.float32,
                     device=slab.device))
-        return flat_send_view(flat["theta"], slab, w,
+        return flat_send_view(theta, slab[:, r0:r1], w,
                               self._send_scale(flat),
-                              u2=flat["u2"] if sp.adaptive else None,
+                              u2=flat["u2"][r0:r1] if sp.adaptive else None,
                               eps=self.fam.eps)
+
+    def view_rows(self, flat: dict, i, r0: int, r1: int):
+        """Hot-row pull: the send view over ONLY rows [r0, r1), equal to
+        ``_view_flat(flat, i)[r0:r1]`` bit for bit (every look-ahead
+        reduction is per row).  The slab's row range is read in place
+        (``send_view`` takes its pitch).  Pure (no state update), so it
+        is a valid send only for the members whose send writes nothing
+        (``not fam.stateful_send``).  An empty range gives a zero-row
+        view and launches nothing."""
+        if r1 <= r0:
+            return flat["theta"].new_zeros((0, flat["theta"].shape[-1]))
+        return self._view_flat(flat, i, rows=(r0, r1))
 
     def send_flat(self, flat: dict, i=0):
         """(view rows, flat): the wire-format send.  For the
@@ -601,6 +709,65 @@ class FlatAlgorithm:
         if self.fam.uses_vscale and "vscale" in flat:
             new["vscale"] = vscales[-1]
         return new, hats, pres
+
+    # -- the sharded gap-aware path (a norm exchanged across shards) ------
+    # The gap penalty needs ||theta - sent_i|| over ALL rows; a row-range
+    # shard holds some.  The sharded master runs ga-asgd one message at
+    # a time: gap_partial (this shard's sum d^2) -> sum over shards ->
+    # apply_gap_message with the total -> sum the ||v'||^2 partials ->
+    # finish_gap_message (avg_step EMA).  The expressions are the plain
+    # version's (``ref.py``) with its norms replaced by the exchanged
+    # totals; sqrt(P) is the WHOLE model's (``self.spec``: the shards
+    # share their owner's FlatAlgorithm).
+    def _sqrt_p(self):
+        return np.sqrt(_F32(self.spec.n_elems), dtype=_F32)
+
+    def gap_partial(self, flat: dict, i):
+        """This row range's sum of (theta - sent_i)^2, a 0-d tensor."""
+        d = flat["theta"] - flat["sent"][i]
+        return torch.sum(d * d)
+
+    def apply_gap_message(self, flat: dict, i, g_row, gap2, view=None):
+        """One gap-aware message on this shard's rows, with the shards'
+        combined ``gap2`` (a host float).  Writes worker i's momentum and
+        snapshot rows in place and replaces theta (the new theta is the
+        reply view, a buffer of its own).  Returns (flat', hat,
+        vn2 partial, lr, vs, d2, g2): flat' keeps the OLD avg_step
+        (``finish_gap_message`` completes it); d2 / g2 are this shard's
+        telemetry partials (None without ``view``)."""
+        lrs, _, gammas, cgs, vscales, _ = self._msg_scalars(flat, 1)
+        lr, gamma, cg, vs = lrs[0], gammas[0], cgs[0], vscales[0]
+        pre = flat["theta"]
+        gap = sqrt_rn(torch.full((), float(gap2), dtype=torch.float32,
+                                 device=pre.device)) / self._sqrt_p()
+        penalty = 1.0 + gap / torch.clamp(flat["avg_step"], min=1e-12)
+        gj = (1.0 / penalty) * g_row
+        v_new = gamma * flat["v"][i] + cg * ((_F32(1.0) / vs) * gj)
+        theta = ((-lr) * vs) * v_new + pre
+        flat["v"][i] = v_new
+        flat["sent"][i] = theta
+        new = dict(flat)
+        new.update(theta=theta, t=flat["t"] + 1, lr_prev=lr, vscale=vs,
+                   wscal=self.lane.set_at(flat["wscal"], SENT_STEP, i,
+                                          flat["t"] + 1))
+        vn2 = torch.sum(v_new * v_new)
+        d2 = g2 = None
+        if view is not None:
+            dd = pre - view
+            d2, g2 = torch.sum(dd * dd), torch.sum(g_row * g_row)
+        return new, theta, vn2, lr, vs, d2, g2
+
+    def finish_gap_message(self, flat: dict, vn2, lr, vs):
+        """avg_step's EMA from the shards' combined ||v'||^2 (a host
+        float)."""
+        avg = flat["avg_step"]
+        step_rms = lr * vs * sqrt_rn(torch.full(
+            (), float(vn2), dtype=torch.float32, device=avg.device)) \
+            / self._sqrt_p()
+        new = dict(flat)
+        new["avg_step"] = (self.fam.gap_ema * avg
+                           + (1 - self.fam.gap_ema) * step_rms)
+        return new
 
     def receive_send(self, flat: dict, i, grad, now=0.0):
         """One message through the batched path (k=1)."""

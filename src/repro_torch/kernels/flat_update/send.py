@@ -28,6 +28,12 @@ float32, shapes, contiguity, 16-byte alignment) in one pass, the output
 allocated, ``_build.launch`` (the current stream's raw handle, no device
 context on the current device), the counter.  The checks are
 ``kernel._check_all``'s, which name the tensor at fault.
+
+The slab may be a row range ``slab[:, r0:r1]`` of a larger slab (a
+hot-row pull, a shard's reply): the kernel takes the elements between
+one worker's rows and the next's (the pitch) and reads the range where
+it lies.  Each worker's rows must be contiguous; any other layout is
+refused.
 """
 from __future__ import annotations
 
@@ -47,8 +53,11 @@ def flat_send_view_ref(theta, slab, w, c, u2=None, eps: float = 1e-8):
 
 
 def _send_checks(theta, slab, w, u2):
-    """One pass over the inputs; returns (R, N) or raises the first
-    fault."""
+    """One pass over the inputs; returns (R, N, slab pitch) or raises the
+    first fault.  The slab passes ``_check_all`` through its first
+    worker's rows (device, dtype, shape, contiguous rows, alignment);
+    for N > 1 its pitch must be a multiple of 4 (float4 access) and at
+    least R*128 (workers' rows do not overlap)."""
     if not (isinstance(theta, torch.Tensor) and theta.dim() == 2
             and isinstance(slab, torch.Tensor) and slab.dim() == 3):
         raise ValueError(f"theta must be (R, 128) and slab (N, R, 128), "
@@ -57,21 +66,27 @@ def _send_checks(theta, slab, w, u2):
     r, n = theta.shape[0], slab.shape[0]
     if r < 1 or n < 1:
         raise ValueError(f"empty view: R={r}, N={n}")
-    named = [("theta", theta, (r, 128)), ("slab", slab, (n, r, 128)),
+    named = [("theta", theta, (r, 128)), ("slab[0]", slab[0], (r, 128)),
              ("w", w, (n,))]
     if u2 is not None:
         named.append(("u2", u2, (r, 128)))
     _check_all(named, theta.device)
-    return r, n
+    if n == 1:
+        return r, n, r * 128
+    pitch = slab.stride(0)
+    if pitch < r * 128 or pitch % 4:
+        raise ValueError(f"slab pitch {pitch} must be a multiple of 4 "
+                         f"and at least {r * 128} (R x 128)")
+    return r, n, pitch
 
 
 def _send_view_cuda(theta, slab, w, c, u2, eps):
-    r, n = _send_checks(theta, slab, w, u2)
+    r, n, pitch = _send_checks(theta, slab, w, u2)
     out = torch.empty_like(theta)
     rc = _build.launch(_build.load().send_view, theta.get_device(),
                        theta.data_ptr(), slab.data_ptr(), w.data_ptr(),
                        float(c), None if u2 is None else u2.data_ptr(),
-                       float(eps), out.data_ptr(), r, n)
+                       float(eps), out.data_ptr(), r, n, pitch)
     if rc:
         _build.check(rc, "send_view")
     _build.count("send_view")
@@ -81,8 +96,9 @@ def _send_view_cuda(theta, slab, w, c, u2, eps):
 def flat_send_view(theta, slab, w, c, u2=None, *, eps: float = 1e-8):
     """view = theta - c * sum_j w[j]*slab[j] [/ (sqrt(u2)+eps)].
 
-    theta (R, 128); slab (N, R, 128); w (N,) float32 on theta's device;
-    c a host scalar.  The CUDA kernel for CUDA tensors (or an error), the
+    theta (R, 128); slab (N, R, 128), each worker's rows contiguous
+    (``slab[:, r0:r1]`` of a larger slab is read in place); w (N,)
+    float32 on theta's device; c a host scalar.  The CUDA kernel for CUDA tensors (or an error), the
     plain version for CPU tensors.
     """
     if theta.is_cuda:

@@ -7,6 +7,14 @@
   python -m repro_torch.launch.cluster --algo dana-zero \
       --workers 4 --grads 400 --mode deterministic --compare-engine
 
+  # row-sharded multi-master (4 shard servers over the flat layout, on
+  # threads); deterministic sharding stays bit for bit the engine
+  python -m repro_torch.launch.cluster --algo dana-zero \
+      --workers 8 --grads 2000 --mode free --coalesce 4 --shards 4
+
+  # the elastic-averaging baseline (tree path, no kernel)
+  python -m repro_torch.launch.cluster --algo easgd --mode free
+
   # fault injection: drop worker 2 between master steps 200 and 600,
   # 5% transient stalls, out-of-order delivery within the coalesce window
   python -m repro_torch.launch.cluster --mode paced --workers 8 \
@@ -26,9 +34,8 @@
 Runs on the GPU (``--device cuda``, the default) or, with ``--device
 cpu``, on the CPU through the kernels' plain versions.  Run with
 ``PYTHONPATH=src`` from the repository root.  The flags are the JAX
-package's ``repro.launch.cluster``'s, with the same defaults; options
-the port does not implement yet (``--shards`` > 1, ``--backend
-process``) raise.
+package's ``repro.launch.cluster``'s, with the same defaults; the one
+option the port does not implement yet (``--backend process``) raises.
 """
 from __future__ import annotations
 
@@ -109,8 +116,8 @@ def main(argv=None):
                     choices=["deterministic", "paced", "free"])
     ap.add_argument("--coalesce", type=int, default=4)
     ap.add_argument("--shards", type=int, default=1,
-                    help="row-range master shards (not ported: > 1 "
-                         "raises)")
+                    help="row-range master shards (flat kernel path "
+                         "only; threads on one device)")
     ap.add_argument("--backend", default="thread",
                     choices=["thread", "process"],
                     help="process is not ported (raises)")

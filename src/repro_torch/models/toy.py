@@ -111,3 +111,35 @@ class ClassifierGradFn:
             self._grad = make_classifier_fns(self.dims,
                                              self.weight_decay)[1]
         return self._grad(params, batch)
+
+
+def quadratic_fns(dim: int = 50, cond: float = 100.0, seed: int = 0,
+                  h=None, device="cuda"):
+    """A deterministic ill-conditioned quadratic 0.5 x^T H x: handy for
+    exact convergence tests of the momentum algebra.  Returns
+    ``(params0, loss, grad_fn)`` like the JAX package's.
+
+    H has eigenvalues ``logspace(0, log10(cond), dim)`` in a random
+    orthogonal basis drawn from numpy's ``seed``; the JAX package draws
+    its basis from ``jax.random``, so to run the same function pass its
+    matrix as ``h`` (a (dim, dim) array)."""
+    if h is None:
+        rng = np.random.default_rng(seed)
+        evals = np.logspace(0, np.log10(cond), dim)
+        q = np.linalg.qr(rng.standard_normal((dim, dim)))[0]
+        h = (q * evals) @ q.T
+    h = torch.from_numpy(np.array(h, np.float32)).to(device)
+    dim = h.shape[0]
+
+    def loss(params, batch=None):
+        x = params["x"]
+        return 0.5 * (x @ h @ x)
+
+    def grad_fn(params, batch=None):
+        x = params["x"].detach().requires_grad_(True)
+        with torch.enable_grad():
+            (g,) = torch.autograd.grad(loss({"x": x}), [x])
+        return {"x": g}
+
+    params0 = {"x": torch.ones((dim,), dtype=torch.float32, device=device)}
+    return params0, loss, grad_fn

@@ -191,8 +191,9 @@ def test_converted_jax_flat_state_equals_port_init(name):
 
 
 def test_ssgd_raises_until_ported():
-    class FakeSSGD:
-        name = "ssgd"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        run_simulation(FakeSSGD(), None, [], None,
-                       SimulationConfig(device="cpu"))
+    """ssgd runs on the synchronous barrier (``_run_ssgd``); asked for
+    the per-message flat path it raises the JAX package's ValueError."""
+    from repro_torch.core.algorithms import make_algorithm
+    with pytest.raises(ValueError, match="ssgd is not kernel-eligible"):
+        run_simulation(make_algorithm("ssgd"), None, [], None,
+                       SimulationConfig(device="cpu", use_kernel=True))

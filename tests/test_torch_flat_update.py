@@ -354,11 +354,16 @@ def test_unit_weight_sends_reuse_one_weights_tensor(name, monkeypatch):
 
 
 def test_flat_eligibility_equals_the_jax_package():
-    """Every registered member has a flat path, and the same members as
-    in the JAX package build their send view with the send kernel."""
+    """Every registered member but the four off-flat ones has a flat
+    path, and the same members as in the JAX package build their send
+    view with the send kernel."""
     assert FLAT_ELIGIBLE == jops.FLAT_ELIGIBLE
     assert SEND_KERNEL == jops.SEND_KERNEL
-    assert sorted(REGISTRY) == sorted(FLAT_ELIGIBLE)
+    off_flat = {"ssgd", "easgd", "dana-easgd", "yellowfin"}
+    assert sorted(set(REGISTRY) - off_flat) == sorted(FLAT_ELIGIBLE)
+    for name in off_flat:
+        assert not kernel_eligible(make_algorithm(name))
+        assert not jops.kernel_eligible(jmake(name))
     for name in FLAT_ELIGIBLE:
         algo = make_algorithm(name)
         assert kernel_eligible(algo)

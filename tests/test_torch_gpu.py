@@ -11,7 +11,8 @@ The scan's cases cover each instance of its kernels (one or two
 channels a lane, N of 8 or 16, float32 or bf16 inputs as ``apply_mamba``
 passes them, strided B and C), and the plain staging path (D no
 multiple of 8); ``send_view`` is held bit for bit at N=1 and to 1e-5
-with rate weights; ``rglru_scan`` bit for bit at every staging edge and
+with rate weights, and reads a strided row range of its slab in place
+(bit for bit the same call on a contiguous copy); ``rglru_scan`` bit for bit at every staging edge and
 at decode; ``gap_update`` bit for bit on relaunch and to GAP_TOL at k =
 1, 2 and 8, with repeated workers adjacent and apart.
 """
@@ -234,6 +235,52 @@ def test_send_view_kernel_refuses_what_it_does_not_take(cuda):
         flat_send_view(flat[1:].view_as(theta), slab, w, 1.0)
     with pytest.raises(ValueError, match="empty|shape"):
         flat_send_view(theta[:0], slab[:, :0], w, 1.0)
+    assert launches(["send_view"]) == {"send_view": 0}
+
+
+@pytest.mark.parametrize("n", [1, 8, 64])
+@pytest.mark.parametrize("adaptive", [False, True])
+def test_send_view_kernel_reads_a_strided_row_range(cuda, n, adaptive):
+    """``slab[:, r0:r1]`` of a larger slab, read in place through the
+    kernel's pitch: bit for bit the kernel on a contiguous copy and the
+    full-slab call's rows; the plain version bit for bit at N=1, within
+    WEIGHTED_TOL (1e-5) of the sum of magnitudes for the N-way sum."""
+    theta, slab, w, u2 = _send_inputs(300, n, adaptive, n, cuda)
+    c = np.float32(0.05) * np.float32(0.9)
+    full = flat_send_view(theta, slab, w, c, u2)
+    for r0, r1 in ((0, 8), (17, 131), (296, 300)):
+        strided = slab[:, r0:r1]
+        u = None if u2 is None else u2[r0:r1]
+        reset_launches()
+        out = flat_send_view(theta[r0:r1], strided, w, c, u)
+        assert launches(["send_view"]) == {"send_view": 1}
+        copy = flat_send_view(theta[r0:r1], strided.contiguous(), w, c, u)
+        assert torch.equal(out, copy) and torch.equal(out, full[r0:r1])
+        ref = flat_send_view_ref(theta[r0:r1], strided, w, c, u2=u)
+        if n == 1:
+            assert torch.equal(out, ref)
+        else:
+            # a reordered N-way sum: relative to the sum of magnitudes,
+            # chip_smoke.py's max_err rule
+            scale = flat_send_view_ref(theta[r0:r1].abs(), strided.abs(),
+                                       w.abs(), -abs(c), u2=u)
+            assert bool(((out - ref).abs() <= 1e-5 + 1e-5 * scale).all())
+
+
+def test_send_view_kernel_refuses_other_slab_layouts(cuda):
+    theta, slab, w, _ = _send_inputs(64, 4, False, 0, cuda)
+    base = torch.zeros(4 * 64 * 128 + 64, device=cuda)
+    reset_launches()
+    with pytest.raises(ValueError, match="pitch"):       # not float4
+        flat_send_view(theta, base.as_strided((4, 64, 128),
+                                              (64 * 128 + 2, 128, 1)),
+                       w, 1.0)
+    with pytest.raises(ValueError, match="pitch"):       # workers overlap
+        flat_send_view(theta, base.as_strided((4, 64, 128), (128, 128, 1)),
+                       w, 1.0)
+    wide = torch.zeros((4, 64, 256), device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):  # rows apart
+        flat_send_view(theta, wide[:, :, :128], w, 1.0)
     assert launches(["send_view"]) == {"send_view": 0}
 
 
