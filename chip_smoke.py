@@ -29,9 +29,11 @@ dana-dc and dc-asgd as large a snapshot slab); batches of 256 per worker
 (16K in total).  Depth is cut to 256 gradients (engine, deterministic
 cluster, sharded deterministic), 512 (free cluster, sharded free), 64
 (legacy kernel path), 128 (ga-asgd engine, deterministic and sharded
-clusters; the hot-row run), 256 (ga-asgd free cluster), 32 (each other
-member) and 2 rounds of 64 (ssgd).  The row-sharded master's shards
-are threads on the card.  falcon-mamba-7b runs at its published widths
+clusters), 192 (the hot-row run), 256 (ga-asgd free cluster), 32 (each
+other member) and 2 rounds of 64 (ssgd).  The row-sharded master's shards
+are threads on the card; the process backend runs its shard servers
+and workers as processes (16 workers: its cut; 128 pinned messages, 512
+free).  falcon-mamba-7b runs at its published widths
 (d_model 4096, d_inner 8192, ssm_state 16, conv 4, dt_rank 256, vocab
 65,024) and full depth (64 layers, 7.3B parameters, 14.6 GB in bf16);
 recurrentgemma-9b (arXiv:2402.19427) at its published widths (d_model
@@ -138,6 +140,25 @@ Phases (one JSON line each):
               4 shards, free, coalescing up to 8, telemetry on: updates/s
               beside cluster_free's, each shard's applied count and busy
               seconds, the drained-k histogram
+  procs_pinned
+              the process backend (shard servers and workers as spawned
+              processes, ring slots on the card shared through CUDA IPC)
+              at full width with 16 worker processes (64 would hold 65
+              CUDA contexts and spawn for about two minutes a run;
+              scripts/torch_profile_cluster.py --backend process runs
+              64): dana-zero, 2 shards, pin_schedule, 128 messages,
+              beside the thread backend's pinned run: final parameters
+              bit for bit, identical worker/lag/step streams; the shard
+              children's flat_update_batch 2 a message, the parent's
+              send_view 2 a worker; the reckoned memory before, the
+              card's used memory, utilization, spawn seconds after
+  procs_free  free, coalescing up to 8, 512 messages, 16 worker
+              processes, at S = 1, 2, 4, beside the thread backend's
+              single master at 16 workers and this call's cluster_free and
+              sharded_free (64 threads): updates/s, the drained k, each
+              shard's applied count and busy share, spawn seconds, the
+              workers' host seconds by loop part; flat_update_batch a
+              shard a drained batch in the children
   hot_rows    send_view over three row ranges of the layout (the first
               layer's block, a middle range, the last rows), the slab
               read in place through its pitch: dana-zero's view_rows
@@ -147,6 +168,10 @@ Phases (one JSON line each):
               the full view's and each range's bound; then a free run
               whose workers 1-4 drop out and rejoin through pulls of
               their declared hot rows
+  procs_ga    ga-asgd on the process backend, 1 shard, pinned, 128
+              messages, 16 worker processes: within rtol 1e-5 / atol
+              1e-6 of the thread backend's pinned run, gap_update once a
+              message in the shard child (k + 2 kernels a drained batch)
   sharded_ga  ga-asgd, 2 shards, deterministic, the gap norms summed over
               the shards' partials: final parameters within rtol 1e-5 /
               atol 1e-6 of main_path_ga's single master
@@ -213,6 +238,11 @@ Phases (one JSON line each):
               takes the tree path, as the JAX CLI's), then free
               coalescing up to 4 (one flat_update_batch a drained
               batch): updates/s and launches
+  cluster_lm_procs
+              launch.cluster.main --preset lm --backend process: 2
+              worker processes, 32 gradients, free: a finite loss, the
+              shard child's flat_update_batch a drained batch and the
+              workers' swa_attention launches, counted in the children
   cluster_lm_full
               run_cluster, deterministic, flat kernel path, on
               qwen2-1.5b at full width with its depth cut to 2 layers
@@ -223,12 +253,15 @@ Phases (one JSON line each):
               kernels (final parameters bit for bit the cluster's) and
               on the tree path without kernels (within 1e-3 relative L2)
 Every path runs with the launch counts set to 0 just before it and read
-just after; a path that did not launch its kernels fails.  The last
+just after; a path that did not launch its kernels fails (a process
+backend's children count in their own processes and ship their counts
+back; the parent sums them).  The last
 lines: the kernel table as JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}.  Any failed check raises and the script
 exits non-zero; without a CUDA device it exits 2 at once.
 """
 import json
+import os
 import subprocess
 import sys
 import time
@@ -271,7 +304,7 @@ MEMBER_LR = {"nadam-asgd": 1e-3, "dana-nadam": 1e-3}
 SHARDS = 4                # sharded_deterministic / sharded_free
 GA_SHARDS = 2             # sharded_ga
 SHARDED_GA_TOL = dict(rtol=1e-5, atol=1e-6)
-HOT_GRADS = 128           # hot_rows: the free run with declared hot rows
+HOT_GRADS = 192           # hot_rows: the free run with declared hot rows
 OFFFLAT = ("ssgd", "easgd", "dana-easgd", "yellowfin")
 OFFFLAT_GRADS = 32        # each asynchronous off-flat member
 SSGD_ROUNDS = 2           # ssgd: rounds of WORKERS gradients
@@ -373,12 +406,13 @@ def time_pair(fn_a, fn_b, reps=4 * REPS):
     return float(np.median(times[0])), float(np.median(times[1]))
 
 
-def profiled(fn, names, reps=REPS, attempts=3):
+def profiled(fn, names, reps=REPS, attempts=3, required=True):
     """{name: (device us, kernels)} over ``reps`` calls of ``fn`` (after a
     warm-up call), from torch.profiler's CUDA activity in one window, for
     the kernels whose names contain each of ``names``.  The profiler
     loses kernel records now and then (PERF.md): a window that shows no
-    record of a name is taken again, up to ``attempts`` windows."""
+    record of a name is taken again, up to ``attempts`` windows; then a
+    name still unseen raises, or with ``required=False`` is left out."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CUDA]
@@ -399,6 +433,8 @@ def profiled(fn, names, reps=REPS, attempts=3):
                              sum(c for _, c in hits))
         if len(out) == len(names):
             return out
+    if not required:
+        return out
     raise AssertionError(f"the profiler saw no device time of "
                          f"{sorted(set(names) - set(out))} in {attempts} "
                          f"windows (its CUDA records: "
@@ -409,8 +445,16 @@ def device_ms(fn, name, reps=REPS, per_call=False):
     """Device time (ms) per launch of the kernels whose names contain
     ``name`` (per call of ``fn`` with ``per_call``), from torch.profiler's
     CUDA activity over ``reps`` calls (after a warm-up call): the
-    wrapper's host work left out."""
-    us, n = profiled(fn, [name], reps)[name]
+    wrapper's host work left out.  Where the profiler lost every record
+    of the name in all its windows, the median CUDA-event time of a call
+    (``time_ms``, the host's launch work included) stands in, and a line
+    says so."""
+    got = profiled(fn, [name], reps, required=False).get(name)
+    if got is None:
+        ms = time_ms(fn, reps)
+        emit({"phase": "device_ms_from_events", "kernel": name, "ms": ms})
+        return ms
+    us, n = got
     return us / 1e3 / (reps if per_call else n)
 
 
@@ -1011,17 +1055,20 @@ def phase_members():
 
 
 # -- the threaded cluster --------------------------------------------------
-def run_cluster_once(conf, **kw):
+def run_cluster_once(conf, workers=WORKERS, **kw):
     """One ``run_cluster`` at full width with the launch counts set to 0
     just before it and read just after; returns (history, stats, counts,
     wall seconds, peak device bytes)."""
+    import gc
+
     from repro_torch.cluster import ClusterConfig, run_cluster
     from repro_torch.kernels import launches, reset_launches
 
     task, grad_fn, eval_fn, params0, algo = conf
     kw.setdefault("eval_every", EVAL_EVERY)
-    cfg = ClusterConfig(num_workers=WORKERS, device="cuda", **kw)
+    cfg = ClusterConfig(num_workers=workers, device="cuda", **kw)
     stats = {}
+    gc.collect()           # an earlier run's worker threads hold views
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1252,6 +1299,28 @@ def hot_ranges(spec):
             "last": (spec.rows - 4096, spec.rows)}
 
 
+def pull_queue(events):
+    """Where each rejoin pull sat in the master's queue, from a traced
+    run: for every pull-only round trip (the worker's ``rpc`` span, which
+    ends with the reply or with the run), the messages applied before it
+    was enqueued, those applied while it waited, and its round-trip
+    milliseconds."""
+    applies = [(e["ts"], e["args"]["k"]) for e in events
+               if e["ph"] == "X" and e["name"] == "apply"]
+    out = []
+    for e in events:
+        if not (e["ph"] == "X" and e["name"] == "rpc"
+                and e.get("args", {}).get("pull_only")):
+            continue
+        t0, t1 = e["ts"], e["ts"] + e["dur"]
+        out.append({"applied_before_enqueue": sum(
+                        k for t, k in applies if t < t0),
+                    "applied_while_queued": sum(
+                        k for t, k in applies if t0 <= t < t1),
+                    "rpc_ms": e["dur"] / 1e3})
+    return out
+
+
 def phase_hot_rows(card, conf):
     """send_view over three row ranges of the 64-worker slab, read in
     place (its pitch), against the full view's rows and the plain
@@ -1267,7 +1336,7 @@ def phase_hot_rows(card, conf):
     from repro_torch.kernels.flat_update import (FlatAlgorithm,
                                                  flat_send_view,
                                                  flat_send_view_ref)
-    from repro_torch.obs import MetricsRegistry
+    from repro_torch.obs import MetricsRegistry, trace
     t_phase = time.perf_counter()
     task, grad_fn, eval_fn, params0, algo = conf
     spec = FlatSpec.from_tree(params0)
@@ -1338,22 +1407,28 @@ def phase_hot_rows(card, conf):
     ranges = list(hot_ranges(spec).values())
     for wid in range(1, 5):
         hot[wid] = ranges[wid % len(ranges)]
-    # offline from master step 1 to HOT_GRADS - 16: each of workers 1-4
+    # offline from master step 1 to HOT_GRADS - 64: each of workers 1-4
     # sees the window at its second iteration, which starts after its
     # first reply (one of the first 64 messages), and rejoins with a
-    # pull 16 messages before the end
+    # pull 64 messages before the end: the mailbox holds at most one
+    # message of each of the other 63 workers, so the pull is drained
+    # before the run ends
     cfg = ClusterConfig(num_workers=WORKERS, total_grads=HOT_GRADS,
                         mode="free", coalesce=8, eval_every=HOT_GRADS,
                         record_telemetry=False, device="cuda",
                         hot_rows=tuple(hot),
                         faults=FaultPlan(dropout=tuple(
-                            (wid, 1, HOT_GRADS - 16) for wid in range(1, 5))))
+                            (wid, 1, HOT_GRADS - 64) for wid in range(1, 5))))
     reg, stats = MetricsRegistry(), {}
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
-    hist = run_cluster(algo, grad_fn, params0, task.batch, cfg, eval_fn,
-                       stats_out=stats, metrics=reg)
+    trace.enable()
+    try:
+        hist = run_cluster(algo, grad_fn, params0, task.batch, cfg,
+                           eval_fn, stats_out=stats, metrics=reg)
+    finally:
+        trace.disable()
     torch.cuda.synchronize()
     counts = launches()
     snap = reg.snapshot()
@@ -1362,6 +1437,7 @@ def phase_hot_rows(card, conf):
                updates_per_s=stats["updates_per_s"], launches=counts,
                pulls=snap["pulls"]["value"],
                pull_rows=snap["pull_rows"]["value"],
+               pull_queue=pull_queue(trace.export()["traceEvents"]),
                coalesce_counts=stats["coalesce_counts"],
                eval_loss=hist.eval_loss)
     emit(rec)
@@ -1377,6 +1453,285 @@ def phase_hot_rows(card, conf):
                              f"{rec['pull_rows']} rows")
     return rec
 
+
+# -- the process backend ----------------------------------------------------
+# The process phases run PROCS_WORKERS worker processes, not WORKERS: each
+# child holds a CUDA context and spawning one costs seconds of imports on
+# the host's cores (scripts/torch_profile_cluster.py --backend process
+# measures the 64-worker run: its memory, its spawn time and its rate)
+PROCS_WORKERS = 16
+PROCS_REDUCED = {"workers": f"{WORKERS} -> {PROCS_WORKERS}",
+                 "cause": "spawn seconds: 64 worker processes fit on the "
+                          "card (78 GB) but take 108-128 s a run to spawn "
+                          "on an 8-core host"}
+PROCS_CAP = 2 * PROCS_WORKERS   # ring slots a shard (the JAX default)
+PROCS_SHARDS = 2          # procs_pinned
+PROCS_GRADS = 128         # procs_pinned, procs_ga
+PROCS_FREE_SHARDS = (1, 2, 4)
+PROCS_TOL = dict(rtol=1e-5, atol=1e-6)
+PROCS_LM_WORKERS, PROCS_LM_GRADS = 2, 32
+
+
+class MemSampler:
+    """Samples, every ``interval`` seconds while a run is live, each
+    process's device memory as nvidia-smi reports it
+    (``--query-compute-apps``; empty where the card's process table is
+    not this host's) and the card's used memory
+    (``torch.cuda.mem_get_info``), keeping each one's maximum, and the
+    card's utilization (nvidia-smi's share of its sample period with a
+    kernel running, from any process)."""
+
+    def __init__(self, interval=1.0):
+        import threading
+        self.interval = interval
+        self.per_pid = {}
+        self.device_used_max = 0
+        self.utilization = []     # percent of each sample period busy
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+
+    def _query(self, what):
+        return subprocess.run(
+            ["nvidia-smi", what, "--format=csv,noheader,nounits"],
+            capture_output=True, text=True).stdout
+
+    def _sample(self):
+        for line in self._query(
+                "--query-compute-apps=pid,used_memory").splitlines():
+            parts = [p.strip() for p in line.split(",")]
+            if len(parts) == 2 and all(p.isdigit() for p in parts):
+                pid, mib = int(parts[0]), int(parts[1])
+                self.per_pid[pid] = max(self.per_pid.get(pid, 0), mib)
+        free, total = torch.cuda.mem_get_info()
+        self.device_used_max = max(self.device_used_max, total - free)
+        util = self._query("--query-gpu=utilization.gpu").strip()
+        if util.isdigit():
+            self.utilization.append(int(util))
+
+    def _loop(self):
+        while not self._stop.wait(self.interval):
+            self._sample()
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+
+def mps_daemon_running():
+    """Whether an MPS control daemon runs on this host (a process named
+    nvidia-cuda-mps-*); this script never starts one."""
+    for comm in Path("/proc").glob("[0-9]*/comm"):
+        try:
+            if comm.read_text().startswith("nvidia-cuda-mps"):
+                return True
+        except OSError:
+            continue
+    return False
+
+
+def procs_memory_plan(spec, shards_list, cap, evals, workers):
+    """The reckoned device bytes of the process backend's terms at this
+    width, before its first run: the dana-zero state (theta, a momentum
+    row a worker, v0), the workers' view buffers, the ring (grad,
+    telemetry view
+    and reply slots), the eval snapshots, a worker's own tensors (its
+    gradient's leaves; it packs them straight into the ring slots) and a
+    shard's k=8 batch (reply views, telemetry pre-update views)."""
+    slab = spec.rows * 128 * 4
+    return {"phase": "procs_memory_plan", "rows": spec.rows,
+            "workers": workers, "slab_bytes": slab,
+            "state_bytes": (workers + 2) * slab,
+            "worker_view_buffers_bytes": workers * slab,
+            "ring_bytes": 3 * cap * slab, "mailbox_capacity": cap,
+            "eval_snapshot_bytes": evals * slab,
+            "worker_tensor_bytes_each": slab,
+            "shard_batch_bytes": {S: 2 * 8 * slab // S
+                                  for S in shards_list},
+            "host_cores": os.cpu_count(),
+            "mps_daemon_running": mps_daemon_running()}
+
+
+def procs_conf(conf):
+    """``conf`` with the MLP's gradient as a picklable object
+    (``ClassifierGradFn``, the same function as ``configuration``'s
+    closure): the process backend pickles it into every worker."""
+    from repro_torch.models.toy import ClassifierGradFn
+    return (conf[0], ClassifierGradFn(DIMS)) + tuple(conf[2:])
+
+
+def run_procs(conf, **kw):
+    """One ``run_cluster(backend="process")`` at full width with
+    PROCS_WORKERS workers through ``run_cluster_once`` (the parent's
+    launch counts set to 0 just before it and read just after; the
+    children's counts start at 0 in each child and come back in
+    ``stats["launches"]``), with the memory sampler on; returns
+    (history, stats, record)."""
+    with MemSampler() as mem:
+        hist, stats, counts, secs, peak = run_cluster_once(
+            conf, backend="process", mailbox_capacity=PROCS_CAP,
+            workers=PROCS_WORKERS, **kw)
+    cm = stats["child_memory"]
+    rec = {"seconds": secs, "workers": PROCS_WORKERS,
+           "reduced": PROCS_REDUCED,
+           "updates_per_s": stats["updates_per_s"],
+           "steady_updates_per_s": stats["steady_updates_per_s"],
+           "wall_s": stats["wall_s"], "shards": stats["shards"],
+           "shard_applied": stats["shard_applied"],
+           "shard_busy_s": stats["shard_busy_s"],
+           "shard_busy_share": [b / stats["wall_s"]
+                                for b in stats["shard_busy_s"]],
+           "coalesce_counts": stats["coalesce_counts"],
+           "mean_coalesce": stats["mean_coalesce"],
+           "spawn_s": stats["spawn_s"],
+           "worker_seconds": stats["worker_seconds"],
+           "ring_bytes": stats["ring_bytes"],
+           "mailbox_capacity": stats["mailbox_capacity"],
+           "launches_parent": {k: n for k, n in counts.items() if n},
+           "launches_children": stats["launches"],
+           "launches": {k: counts.get(k, 0) + stats["launches"].get(k, 0)
+                        for k in set(counts) | set(stats["launches"])},
+           "parent_peak_mem_gb": peak / 1e9,
+           "device_used_max_gb": mem.device_used_max / 1e9,
+           "card_utilization_samples": mem.utilization,
+           "smi_mib_by_pid": {str(p): m for p, m in mem.per_pid.items()},
+           "allocator_reserved_gb_shards": [
+               b / 1e9 for b in cm["shards"].values()],
+           "allocator_reserved_gb_workers_max": max(
+               cm["workers"].values()) / 1e9,
+           "host_cores": os.cpu_count(),
+           "mps_daemon_running": mps_daemon_running(),
+           "eval_step": hist.eval_step, "eval_loss": hist.eval_loss}
+    if not (hist.eval_loss and all(np.isfinite(hist.eval_loss))):
+        raise AssertionError(f"process run: eval losses {hist.eval_loss}")
+    return hist, stats, rec
+
+
+def phase_procs_pinned(conf):
+    """dana-zero, PROCS_SHARDS shards, pin_schedule, PROCS_GRADS messages,
+    PROCS_WORKERS workers, on the thread backend and then the process
+    backend: final parameters bit for bit, identical worker/lag/step
+    streams; the shard children launch flat_update_batch once a shard a
+    message (the pin drains k=1), the parent send_view once a shard an
+    initial view."""
+    from repro_torch.core.flat import FlatSpec
+    from repro_torch.core.types import tree_leaves
+    conf = procs_conf(conf)
+    emit(procs_memory_plan(FlatSpec.from_tree(conf[3]), PROCS_FREE_SHARDS,
+                           PROCS_CAP, FREE_GRADS // EVAL_EVERY,
+                           PROCS_WORKERS))
+    kw = dict(mode="free", total_grads=PROCS_GRADS, pin_schedule=True,
+              shards=PROCS_SHARDS, record_telemetry=True)
+    ht, st, ct, secs_t, _ = run_cluster_once(conf, workers=PROCS_WORKERS,
+                                             **kw)
+    final_t = [l.clone() for l in tree_leaves(ht.final_params)]
+    events_t = [getattr(ht, k) for k in ("worker", "lag", "step")]
+    del ht
+    hp, sp, rec = run_procs(conf, **kw)
+    rec.update(phase="procs_pinned", thread_seconds=secs_t,
+               thread_updates_per_s=st["updates_per_s"],
+               thread_launches=ct)
+    rec["final_params_bit_equal_to_thread"] = all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(hp.final_params),
+                                          final_t))
+    rec["events_equal_to_thread"] = events_t == [
+        getattr(hp, k) for k in ("worker", "lag", "step")]
+    emit(rec)
+    lc, lp = rec["launches_children"], rec["launches_parent"]
+    if (lc.get("flat_update_batch") != PROCS_SHARDS * PROCS_GRADS
+            or lp.get("send_view") != PROCS_SHARDS * PROCS_WORKERS
+            or ct["flat_update_batch"] != PROCS_SHARDS * PROCS_GRADS):
+        raise AssertionError(f"procs_pinned launches: children {lc}, "
+                             f"parent {lp}, thread {ct}")
+    if not (rec["final_params_bit_equal_to_thread"]
+            and rec["events_equal_to_thread"]):
+        raise AssertionError("procs_pinned differs from the thread "
+                             "backend's pinned run")
+    return rec
+
+
+def phase_procs_ga(conf_ga):
+    """ga-asgd, 1 shard, pin_schedule, PROCS_GRADS messages,
+    PROCS_WORKERS workers: the process backend within PROCS_TOL of the
+    thread backend; gap_update once a message in the shard child (k + 2
+    kernels a drained batch)."""
+    from repro_torch.core.types import tree_leaves
+    conf_ga = procs_conf(conf_ga)
+    kw = dict(mode="free", total_grads=PROCS_GRADS, pin_schedule=True,
+              record_telemetry=True)
+    ht, st, ct, secs_t, _ = run_cluster_once(conf_ga,
+                                             workers=PROCS_WORKERS, **kw)
+    final_t = [l.clone() for l in tree_leaves(ht.final_params)]
+    worker_t = list(ht.worker)
+    del ht
+    hp, sp, rec = run_procs(conf_ga, **kw)
+    final_p = tree_leaves(hp.final_params)
+    rec.update(phase="procs_ga", thread_seconds=secs_t,
+               thread_updates_per_s=st["updates_per_s"],
+               thread_launches=ct, tolerance=PROCS_TOL,
+               workers_equal_to_thread=list(hp.worker) == worker_t)
+    rec["max_abs_err_vs_thread"] = max(
+        max_err(a, b, PROCS_TOL, "procs_ga final parameters")
+        for a, b in zip(final_p, final_t))
+    rec["final_params_rel_l2_vs_thread"] = rel_l2(final_p, final_t)
+    emit(rec)
+    lc = rec["launches_children"]
+    if (lc.get("gap_update") != PROCS_GRADS or lc.get("flat_update_batch")
+            or ct["gap_update"] != PROCS_GRADS):
+        raise AssertionError(f"procs_ga launches: children {lc}, thread "
+                             f"{ct}")
+    if not rec["workers_equal_to_thread"]:
+        raise AssertionError("procs_ga: worker streams differ")
+    return rec
+
+
+def phase_procs_free(conf, single, sharded):
+    """dana-zero, free, coalescing up to 8, FREE_GRADS messages,
+    PROCS_WORKERS workers: the thread backend's single master, then
+    the process backend at each S of PROCS_FREE_SHARDS, beside this
+    call's cluster_free and sharded_free (WORKERS threads): updates/s,
+    each shard's applied count and busy seconds, the drained k, spawn
+    seconds, the workers' host seconds by loop part, memory; one
+    flat_update_batch a shard a drained batch in the children, send_view
+    S a worker in the parent."""
+    conf = procs_conf(conf)
+    kw = dict(mode="free", total_grads=FREE_GRADS, coalesce=8,
+              record_telemetry=True)
+    _, st, _, secs, _ = run_cluster_once(conf, workers=PROCS_WORKERS, **kw)
+    thread = {"updates_per_s": st["updates_per_s"],
+              "steady_updates_per_s": st["steady_updates_per_s"],
+              "mean_coalesce": st["mean_coalesce"], "seconds": secs}
+    recs = {}
+    for S in PROCS_FREE_SHARDS:
+        hist, stats, rec = run_procs(conf, shards=S, **kw)
+        batches = sum(stats["coalesce_counts"].values())
+        rec.update(phase=f"procs_free S={S}",
+                   telemetry_rows=len(hist.gap),
+                   telemetry_dropped=stats["telemetry_dropped"],
+                   thread_same_workers_single=thread,
+                   thread_single_updates_per_s=single["updates_per_s"],
+                   thread_single_steady_updates_per_s=single[
+                       "steady_updates_per_s"],
+                   thread_sharded_updates_per_s=sharded["updates_per_s"],
+                   thread_sharded_shards=sharded["shards"],
+                   thread_workers=WORKERS)
+        emit(rec)
+        lc, lp = rec["launches_children"], rec["launches_parent"]
+        if (stats["shard_applied"] != [FREE_GRADS] * S
+                or len(hist.gap) != FREE_GRADS
+                or lc.get("flat_update_batch") != batches
+                or lp.get("send_view") != S * PROCS_WORKERS):
+            raise AssertionError(f"procs_free S={S}: "
+                                 f"{stats['shard_applied']} applied, "
+                                 f"{len(hist.gap)} telemetry rows, "
+                                 f"children {lc}, parent {lp}, {batches} "
+                                 f"batches")
+        recs[S] = rec
+        del hist
+    return recs
 
 def offflat_run(name, dims, device, grads, workers=WORKERS, batch=BATCH):
     """run_simulation with an off-flat member: (history, seconds)."""
@@ -2372,6 +2727,47 @@ def phase_cluster_lm():
     return recs
 
 
+def phase_cluster_lm_procs():
+    """launch.cluster.main --preset lm --backend process (qwen2-1.5b
+    reduced, the tiny-LM overrides): dana-zero, PROCS_LM_WORKERS worker
+    processes, PROCS_LM_GRADS gradients, free: a finite final loss; the
+    shard child's flat_update_batch once a drained batch and the worker
+    children's swa_attention launches (the dense attn kind), counted in
+    the children and summed by the parent."""
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.launch import cluster as cluster_mod
+    reset_launches()
+    t0 = time.perf_counter()
+    summary = cluster_mod.main([
+        "--preset", "lm", "--model", TRAIN_ARCH, "--algo", "dana-zero",
+        "--mode", "free", "--backend", "process", "--workers",
+        str(PROCS_LM_WORKERS), "--grads", str(PROCS_LM_GRADS)])
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in launches().items() if n}
+    lc = summary["launches"]
+    rec = {"phase": "cluster_lm_procs",
+           "seconds": time.perf_counter() - t0,
+           "updates_per_s": summary["updates_per_s"],
+           "steady_updates_per_s": summary["steady_updates_per_s"],
+           "coalesce_counts": summary["coalesce_counts"],
+           "final_loss": summary["final_loss"],
+           "spawn_s": summary["spawn_s"], "launches_children": lc,
+           "launches_parent": counts,
+           "launches": {k: counts.get(k, 0) + lc.get(k, 0)
+                        for k in set(counts) | set(lc)}}
+    emit(rec)
+    batches = sum(summary["coalesce_counts"].values())
+    if (not np.isfinite(summary["final_loss"])
+            or summary["backend"] != "process"
+            or lc.get("flat_update_batch") != batches
+            or not lc.get("swa_attention")
+            or counts.get("send_view") != PROCS_LM_WORKERS):
+        raise AssertionError(f"cluster_lm_procs: loss "
+                             f"{summary['final_loss']}, children {lc}, "
+                             f"parent {counts}, {batches} batches")
+    return rec
+
+
 def phase_cluster_lm_full(card):
     """qwen2-1.5b at full width, depth cut to 2 layers
     (ModelGradFn(reduced=False, overrides=...)), dana-zero, 4 workers:
@@ -2580,6 +2976,9 @@ def main():
     del hist_e, final_e
     paths["cluster_free"] = phase_cluster_free(conf)
     paths["sharded_free"] = phase_sharded_free(conf, paths["cluster_free"])
+    paths["procs_pinned"] = phase_procs_pinned(conf)
+    paths.update({f"procs_free S={S}": r for S, r in phase_procs_free(
+        conf, paths["cluster_free"], paths["sharded_free"]).items()})
     paths["hot_rows"] = phase_hot_rows(card, conf)
     paths["cluster_legacy"] = phase_cluster_legacy(conf)
     del conf
@@ -2591,6 +2990,7 @@ def main():
     paths["sharded_ga"] = phase_sharded_ga(conf_ga, final_e)
     del hist_e, final_e
     paths["cluster_ga_free"] = phase_cluster_ga_free(conf_ga)
+    paths["procs_ga"] = phase_procs_ga(conf_ga)
     del conf_ga
     torch.cuda.empty_cache()
     paths.update({f"member {k}": r for k, r in phase_members().items()})
@@ -2626,6 +3026,7 @@ def main():
     cl = phase_cluster_lm()
     paths["cluster_lm_deterministic"] = cl["deterministic"]
     paths["cluster_lm_free"] = cl["free"]
+    paths["cluster_lm_procs"] = phase_cluster_lm_procs()
     paths["cluster_lm_full"] = phase_cluster_lm_full(card)
     torch.cuda.empty_cache()
     kernels = []

@@ -18,8 +18,10 @@ launch of the CUDA kernel ``flat_update_batch``; the legacy per-message
 dropout/rejoin, message reordering).  ``ClusterConfig(shards=S)``
 splits the master into S row-range shard servers
 (``cluster/sharded.py``), threads on one card; workers push each
-gradient once and every shard consumes only its rows.  The process
-backend is not ported yet (ROADMAP.md item A5).
+gradient once and every shard consumes only its rows.
+``ClusterConfig(backend="process")`` runs the shard servers and workers
+as spawned processes over shared-memory control cells and device ring
+slots (``cluster/procs.py``).
 """
 from .faults import FaultInjector, FaultPlan
 from .mailbox import FanoutMailbox, GradMsg, Mailbox, Reply

@@ -6,12 +6,12 @@ single-threaded event loop.  In ``deterministic`` mode the run is
 step-for-step identical to the engine (tested bit for bit); ``paced`` and
 ``free`` modes trade that for actual wall-clock concurrency.
 
-The port runs the thread backend, with one master or (``shards > 1``)
-the row-sharded master of ``cluster/sharded.py``, its shards threads on
-one card; ``hot_rows`` declares per-worker hot row ranges for pull-only
-requests.  The one option of the JAX package's ``ClusterConfig`` the
-port does not implement yet, ``backend="process"``, raises
-``NotImplementedError`` naming its ROADMAP.md item (A5).
+The thread backend runs one master or (``shards > 1``) the row-sharded
+master of ``cluster/sharded.py``, its shards threads on one card;
+``hot_rows`` declares per-worker hot row ranges for pull-only requests.
+``backend="process"`` runs the shard servers and the workers as spawned
+processes instead (``cluster/procs.py``), with the JAX package's support
+matrix.
 """
 from __future__ import annotations
 
@@ -69,7 +69,7 @@ class ClusterConfig:
     shard_ranges: tuple | None = None
     rebalance: bool = False
     rebalance_threshold: float = 1.1
-    backend: str = "thread"         # "process": ROADMAP A5
+    backend: str = "thread"         # or "process": cluster/procs.py
     # pin the message schedule to strict round-robin worker order (live
     # modes): makes a run schedule-deterministic
     pin_schedule: bool = False
@@ -79,11 +79,6 @@ class ClusterConfig:
     # staleness.  0 = synchronous push-pull; deterministic mode needs 0.
     pipeline_depth: int = 0
     device: str = "cuda"
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md "
-                              f"item {item}")
 
 
 def _validate(algo: Algorithm, cfg: ClusterConfig) -> None:
@@ -113,7 +108,7 @@ def _validate(algo: Algorithm, cfg: ClusterConfig) -> None:
                          "through the virtual clock, so pull-ahead "
                          "would deadlock it); use paced or free")
     if cfg.backend == "process":
-        _not_ported("the process backend (backend='process')", "A5")
+        return                      # procs.validate_process_config
     if algo.name == "ssgd":
         raise ValueError(
             "ssgd needs the engine's synchronous barrier (per-message "
@@ -214,6 +209,11 @@ def run_cluster(
     untouched.
     """
     _validate(algo, cfg)
+    if cfg.backend == "process":
+        from .procs import run_cluster_procs
+        return run_cluster_procs(algo, grad_fn, params0, next_batch, cfg,
+                                 eval_fn=eval_fn, stats_out=stats_out,
+                                 metrics=metrics)
     n = cfg.num_workers
     deterministic = cfg.mode == "deterministic"
     sharded = cfg.shards > 1

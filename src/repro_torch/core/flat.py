@@ -68,15 +68,35 @@ class FlatSpec:
 
     # -- pack -----------------------------------------------------------
     def pack(self, tree) -> torch.Tensor:
-        """Tree -> (rows, 128) f32, zero-padded.  Each leaf is written
-        into its ``offsets`` span of one zeroed buffer (one allocation;
-        the zero init is the padding tail)."""
+        """Tree -> (rows, 128) f32, zero-padded: ``pack_into`` one
+        buffer holding every row."""
+        device = flatten_up_to(self.treedef, tree)[0].device
+        buf = torch.empty((self.rows, LANES), dtype=torch.float32,
+                          device=device)
+        self.pack_into(tree, [buf], [(0, self.rows)])
+        return buf
+
+    def pack_into(self, tree, outs, ranges) -> None:
+        """Tree -> the packed rows written in place into ``outs``: each
+        ``outs[s]`` a contiguous (r1 - r0, 128) f32 tensor for the rows
+        ``ranges[s] = (r0, r1)`` (range-ordered, covering every row).
+        Each leaf's elements go straight to its ``offsets`` span in the
+        rows they land on (a leaf may straddle two ranges), and the
+        padding after the last leaf is zeroed; split by row range, the
+        result is the same bits as one ``pack``."""
         leaves = flatten_up_to(self.treedef, tree)
-        buf = torch.zeros((self.padded,), dtype=torch.float32,
-                          device=leaves[0].device)
+        flats = [(o.view(-1), r0 * LANES, r1 * LANES)
+                 for o, (r0, r1) in zip(outs, ranges)]
         for leaf, o, s in zip(leaves, self.offsets, self.sizes):
-            buf[o:o + s] = leaf.reshape(-1)
-        return buf.view(self.rows, LANES)
+            src = leaf.reshape(-1)
+            for dst, a, b in flats:
+                lo, hi = max(o, a), min(o + s, b)
+                if lo < hi:
+                    dst[lo - a:hi - a] = src[lo - o:hi - o]
+        for dst, a, b in flats:
+            lo = max(self.n_elems, a)
+            if lo < b:
+                dst[lo - a:b - a] = 0.0
 
     def pack_stacked(self, tree) -> torch.Tensor:
         """Tree of (N, ...) leaves -> (N, rows, 128) f32."""

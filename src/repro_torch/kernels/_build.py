@@ -14,7 +14,10 @@ One lock covers every build and load, so two threads that reach a
 kernel for the first time at once build it once (the cluster's master
 also loads its libraries in ``Master.warm`` before workers start).
 ``build_all()`` starts one ``nvcc`` per source, all at once, and waits
-for them together.
+for them together.  A process that must not build (a child of the
+cluster's process backend, whose parent built every library before it
+started it) sets ``NO_BUILD``: a library not built yet then raises
+instead of starting ``nvcc``.
 
 ``launch(fn, index, *args)`` is the wrappers' lean launch path: it
 calls a library's C entry point with the raw handle of the current CUDA
@@ -50,6 +53,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 LAUNCHES: dict[str, int] = {}
 LIBRARIES: list["Library"] = []
+NO_BUILD = False                  # load only: a missing library raises
 _LOCK = threading.Lock()          # builds and loads
 _COUNT_LOCK = threading.Lock()    # launch counters
 
@@ -129,6 +133,9 @@ class Library:
         if out.exists():
             self.info.setdefault("seconds", 0.0)
             return None
+        if NO_BUILD:
+            raise RuntimeError(f"{out.name} is not built and this process "
+                               f"may not build it (NO_BUILD)")
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]

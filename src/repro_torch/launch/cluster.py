@@ -1,4 +1,4 @@
-"""CLI for the port's threaded parameter-server cluster runtime.
+"""CLI for the port's parameter-server cluster (thread and process backends).
 
   python -m repro_torch.launch.cluster --algo dana-zero \
       --workers 8 --grads 2000 --mode free --coalesce 4
@@ -26,6 +26,11 @@
       --grads 2000 --coalesce 4 --trace results/cluster.trace.json \
       --metrics-out results/cluster.metrics.json
 
+  # the process backend: 2 shard servers and 8 workers as spawned
+  # processes, ring slots on the device (live modes only)
+  python -m repro_torch.launch.cluster --algo dana-zero --backend process \
+      --workers 8 --grads 2000 --mode free --coalesce 4 --shards 2
+
   # a real model's gradients through the parameter server: qwen2-1.5b
   # reduced with the tiny-LM overrides, 64-token sequences
   python -m repro_torch.launch.cluster --preset lm --model qwen2-1.5b \
@@ -34,8 +39,7 @@
 Runs on the GPU (``--device cuda``, the default) or, with ``--device
 cpu``, on the CPU through the kernels' plain versions.  Run with
 ``PYTHONPATH=src`` from the repository root.  The flags are the JAX
-package's ``repro.launch.cluster``'s, with the same defaults; the one
-option the port does not implement yet (``--backend process``) raises.
+package's ``repro.launch.cluster``'s, with the same defaults.
 """
 from __future__ import annotations
 
@@ -81,7 +85,7 @@ def _setup(args):
                 make_eval(task.eval_batch()))
     # real-model preset: any registered config name, reduced to smoke
     # scale.  ModelGradFn carries (config name, overrides) instead of a
-    # built model, as the JAX package's does for its process backend.
+    # built model, so it pickles into the process backend's workers.
     from ..models.api import TINY_LM_OVERRIDES, ModelGradFn
     over = dict(TINY_LM_OVERRIDES) if args.model == "qwen2-1.5b" else {}
     grad_fn = ModelGradFn(args.model, overrides=over, mesh_shape=(1, 1))
@@ -120,7 +124,10 @@ def main(argv=None):
                          "only; threads on one device)")
     ap.add_argument("--backend", default="thread",
                     choices=["thread", "process"],
-                    help="process is not ported (raises)")
+                    help="process = shard servers + workers as spawned "
+                         "processes over shared-memory control cells and "
+                         "device ring slots (live modes, flat kernel "
+                         "path)")
     ap.add_argument("--pipeline-depth", type=int, default=0,
                     help="worker pull-ahead depth (live modes): keep up "
                          "to this many pushes in flight per worker — "

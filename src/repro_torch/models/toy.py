@@ -88,9 +88,9 @@ class ClassifierGradFn:
     """The MLP classifier's gradient as a picklable object.
 
     It carries only ``(dims, weight_decay)`` and builds the gradient
-    function lazily, matching the JAX package's ``ClassifierGradFn``
-    (whose process backend pickles it into every worker; the port's
-    process backend is not ported yet, ROADMAP.md).
+    function lazily, matching the JAX package's ``ClassifierGradFn``;
+    the process backend (``cluster/procs.py``) pickles it into every
+    worker.
     """
 
     def __init__(self, dims, weight_decay: float = 0.0):

@@ -395,12 +395,17 @@ def test_classifier_grad_fn_pickles():
     (dict(shard_ranges=((0, 1),)), "A4"), (dict(backend="process"), "A5"),
     (dict(hot_rows=(None,) * 4), "A3")])
 def test_unported_options_raise(kw, item):
-    """Only the process backend (A5) is still refused as not ported.
-    The row-sharded master (A4) and hot-row pulls (A3) run, with the JAX
+    """Every option of the JAX package's ``ClusterConfig`` is ported: the
+    process backend (A5) runs (its workers need a picklable grad_fn),
+    the row-sharded master (A4) and hot-row pulls (A3) run, with the JAX
     package's guards: rebalancing and shard ranges need shards > 1."""
     if item == "A5":
-        with pytest.raises(NotImplementedError, match=item):
-            _cluster("dana-zero", mode="free", **kw)
+        stats = {}
+        run_cluster(make_algorithm("dana-zero", HyperParams(**HP)),
+                    ClassifierGradFn(DIMS), _params0(1), TASK.batch,
+                    _cfg(mode="free", **kw), EVAL_FN, stats_out=stats)
+        assert stats["applied"] == 60
+        assert stats["backend"] == "process"
         return
     if "shards" in kw or "hot_rows" in kw:
         stats = {}

@@ -83,6 +83,9 @@ NEW_IN_SLICE_9 = ("repro_torch.checkpoint", "repro_torch.checkpoint.io",
 # the paper's remaining parameter-server paths: the row-sharded master
 NEW_IN_SLICE_10 = ("repro_torch.cluster.sharded",)
 
+# the process backend: shard servers and workers as spawned processes
+NEW_IN_SLICE_11 = ("repro_torch.cluster.procs",)
+
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
@@ -93,7 +96,8 @@ def test_port_modules_import_no_jax_and_no_repro():
     mods = _port_modules()
     assert "repro_torch.kernels.flat_update.ops" in mods
     for name in (NEW_IN_SLICE_2 + NEW_IN_SLICE_4 + NEW_IN_SLICE_5
-                 + NEW_IN_SLICE_6 + NEW_IN_SLICE_9 + NEW_IN_SLICE_10):
+                 + NEW_IN_SLICE_6 + NEW_IN_SLICE_9 + NEW_IN_SLICE_10
+                 + NEW_IN_SLICE_11):
         assert name in mods, name
     code = (
         "import importlib, json, sys\n"
