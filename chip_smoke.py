@@ -20,7 +20,13 @@ kernels; and the LM training path: qwen2-1.5b trained at full width and
 depth by ``launch.train.main`` (DANA's pod round, 2 pods; every dense
 ``attn`` layer through ``swa_attention`` with a window of S), the pod
 round on recurrentgemma-9b and falcon-mamba-7b at full width with their
-depth cut, and the cluster's ``--preset lm``.
+depth cut, and the cluster's ``--preset lm``; and the decoder-only
+families at their published widths in bf16: chatglm3-6b (2-D RoPE) and
+qwen2-vl-7b (M-RoPE after a 256-position vision prefix) at full depth,
+granite-moe-3b-a800m (40 experts top-8) at full depth, llama4-scout-
+17b-a16e (16 experts top-1 and a shared expert) with its depth cut to 14
+of 48 layers, chatglm3's int8 KV cache, and granite-moe trained with its
+depth cut; every attention prefill through ``swa_attention``.
 Full width: the MLP
 classifier [2048, 4096, 4096, 10] has 25,214,986 parameters, the size
 of the paper's ImageNet ResNet-50 master state, and 64 workers (the
@@ -252,6 +258,36 @@ Phases (one JSON line each):
               at this model's packed rows; then the engine with the
               kernels (final parameters bit for bit the cluster's) and
               on the tree path without kernels (within 1e-3 relative L2)
+  swa_attention_family
+              swa_attention at each family's prefill shape, window = S:
+              chatglm3-6b (4, 512, 32, 2, 128), granite-moe (4, 512, 24,
+              8, 64), llama4-scout (4, 512, 40, 8, 128), qwen2-vl (4,
+              768, 28, 4, 128); bf16 and f32 against the plain version,
+              bf16 timed beside SDPA (is_causal=True, K/V repeated to H)
+              with device times and the bound
+  lm_grad     (also) chatglm3-6b, granite-moe-3b-a800m, llama4-scout and
+              qwen2-vl-7b reduced, f32, the MoE router loss in the
+              backward and qwen2-vl's batch with its prefix
+  serve_generate_chatglm3 / _qwen2_vl / _granite_moe / _llama4_scout
+              generate (batch 4, prompt 512, 32 tokens): one
+              swa_attention a layer in the prefill; prefill + one decode
+              step against forward (0.15; the MoE configs at capacity
+              E / top_k, where nothing drops, with the published 1.25's
+              prefill drop share recorded; qwen2-vl's check on float32
+              parameters, its bf16 gap recorded, C31); llama4-scout's
+              depth cut to 14 layers (65.8 GB)
+  serve_engine_granite_moe
+              the Engine as serve_engine, one swa_attention a layer an
+              admission
+  kv_quant    chatglm3-6b: 32 greedy tokens from the int8 KV cache and
+              from the bf16 cache, then the int8 cache fed the bf16
+              path's tokens: each step's cosine above 0.995, greedy
+              agreement 3/4, the cache under 0.7x the bf16 bytes
+  train_granite_moe
+              launch.train.main on granite-moe at full width, 8 of its
+              32 layers, 2 pods, batch 8 x 512, 3 steps: finite losses
+              with the router loss, v0 == sum_p v_p, 2 swa_attention a
+              layer a pod a step
 Every path runs with the launch counts set to 0 just before it and read
 just after; a path that did not launch its kernels fails (a process
 backend's children count in their own processes and ship their counts
@@ -2159,25 +2195,36 @@ def phase_swa_attention(card):
 # products in another order than the CPU)
 LM_GRAD = {"falcon-mamba-7b-reduced": (2, 64),      # (batch, tokens)
            "recurrentgemma-9b-reduced": (2, 160),   # past its window 64
-           "qwen2-1.5b-reduced": (2, 128)}          # attn: window = S
+           "qwen2-1.5b-reduced": (2, 128),          # attn: window = S
+           # the decoder-only families: 2-D RoPE, MoE (all 4 experts routed;
+           # top-1 with drops at capacity 1.25 and a shared expert), and
+           # M-RoPE after an 8-position vision prefix
+           "chatglm3-6b-reduced": (2, 128),
+           "granite-moe-3b-a800m-reduced": (2, 128),
+           "llama4-scout-17b-a16e-reduced": (2, 128),
+           "qwen2-vl-7b-reduced": (2, 136)}
 LM_GRAD_TOL = 1e-4
 
 
-def lm_grads(model, params0, tokens, w, device):
-    """Leaf gradients of sum(logits * W) on ``device``."""
+def lm_grads(model, params0, batch, w, device):
+    """Leaf gradients of sum(logits * W) + aux on ``device`` (aux: the MoE
+    router loss, 0 for the other kinds)."""
     from repro_torch.core.types import tree_leaves, tree_map
     params = tree_map(lambda l: l.detach().to(device).requires_grad_(True),
                       params0)
-    logits, _ = model.forward(params, {"tokens": tokens.to(device)})
-    (logits * w.to(device)).sum().backward()
+    logits, aux = model.forward(params, {k: v.to(device)
+                                         for k, v in batch.items()})
+    ((logits * w.to(device)).sum() + aux).backward()
     return [l.grad for l in tree_leaves(params)], logits.detach()
 
 
 def phase_lm_grad():
     """Each reduced model in float32: parameters drawn once on the CPU
-    from a seeded generator, tokens and W from numpy; the card's forward
-    and backward with the launch counts set to 0 just before, then the
-    CPU's.  Every leaf's gradient must be finite and within LM_GRAD_TOL
+    from a seeded generator, the batch (``make_batch``: tokens, and the
+    vision prefix and M-RoPE positions where the config takes them) and
+    W from numpy; the card's forward and backward of sum(logits * W) +
+    aux with the launch counts set to 0 just before, then the CPU's.
+    Every leaf's gradient must be finite and within LM_GRAD_TOL
     (relative L2) of the CPU's; each kernel launched once a prologue
     layer and twice a unit layer (the forward checkpoints each unit
     repeat: the forward and the backward's recompute)."""
@@ -2190,18 +2237,20 @@ def phase_lm_grad():
         model = build_model(cfg, torch.float32)
         params0 = model.init(torch.Generator().manual_seed(0), device="cpu")
         rng = np.random.default_rng(4)
-        tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size,
-                                              size=(batch, seq)),
-                                 dtype=torch.int32)
+        if cfg.modality == "text" and cfg.rope != "mrope":
+            inputs = {"tokens": torch.as_tensor(rng.integers(
+                0, cfg.vocab_size, size=(batch, seq)), dtype=torch.int32)}
+        else:
+            inputs = model.make_batch(seq, batch, seed=4, device="cpu")
         w = torch.as_tensor(rng.standard_normal(
             (batch, seq, cfg.vocab_size)).astype(np.float32))
         reset_launches()
         t0 = time.perf_counter()
-        g_card, logits_card = lm_grads(model, params0, tokens, w, "cuda")
+        g_card, logits_card = lm_grads(model, params0, inputs, w, "cuda")
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         counts = launches()
-        g_cpu, logits_cpu = lm_grads(model, params0, tokens, w, "cpu")
+        g_cpu, logits_cpu = lm_grads(model, params0, inputs, w, "cpu")
         rel = []
         for a, b in zip(g_card, g_cpu):
             if a is None or b is None or not bool(torch.isfinite(a).all()):
@@ -2245,21 +2294,24 @@ def rg_engine_expect(cfg, requests, steps):
 
 
 # -- falcon-mamba-7b serving -------------------------------------------------
-def serve_model(arch=SERVE_ARCH):
-    """``arch`` (falcon-mamba-7b by default) at full width and depth, bf16
-    weights drawn on the card from a seeded generator, one layer at a
-    time."""
+def serve_model(arch=SERVE_ARCH, **overrides):
+    """``arch`` (falcon-mamba-7b by default) at full width and depth (or
+    with ``overrides``: a depth cut), bf16 weights drawn on the card from
+    a seeded generator, one layer at a time."""
+    import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.core.types import tree_leaves
     from repro_torch.models.api import build_model
-    cfg = get_config(arch)
+    cfg = dataclasses.replace(get_config(arch), **overrides)
     model = build_model(cfg)
     gen = torch.Generator(device="cuda").manual_seed(0)
     torch.cuda.synchronize()
+    before = {"mem_allocated_before_gb": torch.cuda.memory_allocated() / 1e9,
+              "mem_reserved_before_gb": torch.cuda.memory_reserved() / 1e9}
     t0 = time.perf_counter()
     params = model.init(gen, device="cuda", dtype=torch.bfloat16)
     torch.cuda.synchronize()
-    info = {"init_s": time.perf_counter() - t0,
+    info = {"init_s": time.perf_counter() - t0, **before,
             "params": sum(l.numel() for l in tree_leaves(params)),
             "param_gb": sum(l.numel() * l.element_size()
                             for l in tree_leaves(params)) / 1e9}
@@ -2281,16 +2333,57 @@ def check_counts(phase, counts, expect):
                                  f"times, expected {n}")
 
 
-def generate_phase(model, params, info, phase, batch, prompt, gen, expect,
-                   seed=0):
-    """``generate`` once with the counts set to 0 (after a short warm-up
-    call: cuBLAS handles, the allocator), then prefill + one decode step
-    against forward over prompt + token.  ``expect(cfg)`` gives each
-    kernel's launch count."""
-    from repro_torch.kernels import launches, reset_launches
-    from repro_torch.launch.serve import generate
+def decode_vs_forward(model, params, prompts, tok=None):
+    """Prefill ``prompts`` (after the vision prefix of a vision config, in
+    a cache that holds both), decode ``tok`` (default: the greedy token),
+    and forward over prompt + token: (prefill logits, step logits (B,V),
+    forward's last logits (B,V), the cache), the last two in float32."""
+    from repro_torch.launch.serve import serve_batch
     from repro_torch.models.attention import CacheSpec
     cfg = model.cfg
+    first = serve_batch(cfg, prompts)
+    spec = CacheSpec(first["tokens"].shape[1] + (
+        first["embeds"].shape[1] if "embeds" in first else 0) + 1, None)
+    logits, cache = model.prefill(params, first, spec)
+    if tok is None:
+        tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+    step, cache = model.decode_step(params, tok, cache, spec)
+    full, _ = model.forward(params, serve_batch(cfg, torch.cat([prompts, tok],
+                                                               1)))
+    return logits, step[:, 0].float(), full[:, -1].float(), cache
+
+
+def gap_stats(step, full, prefix=""):
+    """The largest |step - full|, its RMS and the logits past SERVE_TOL."""
+    d = (step - full).abs()
+    return {f"{prefix}decode_vs_forward_max_abs_err": float(d.max()),
+            f"{prefix}decode_vs_forward_rms_err": float(
+                torch.sqrt(torch.mean(d * d))),
+            f"{prefix}decode_vs_forward_past_tolerance": int(
+                (d > SERVE_TOL["atol"] + SERVE_TOL["rtol"] * full.abs())
+                .sum())}
+
+
+def generate_phase(model, params, info, phase, batch, prompt, gen, expect,
+                   seed=0, check_model=None, check_f32=False):
+    """``generate`` once with the counts set to 0 (after a short warm-up
+    call: cuBLAS handles, the allocator), then prefill + one decode step
+    against forward over prompt + token (``decode_vs_forward``).
+    ``expect(cfg)`` gives each kernel's launch count.  ``check_model``
+    (the same parameters, another config: the MoE configs at a capacity
+    where nothing drops) runs the check in place of ``model``;
+    ``generate``'s first tokens are held against ``model``'s own prefill.
+    With ``check_f32`` the check that must hold runs on float32
+    parameters drawn from the same seed (the bf16 gap is recorded): the
+    bf16 KV cache's rounding alone (C6) puts a few of qwen2-vl's bf16
+    logits past the bf16 bound (C31)."""
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.launch.serve import generate, serve_batch
+    from repro_torch.models.api import build_model
+    from repro_torch.models.attention import CacheSpec
+    cfg = model.cfg
+    cm = check_model or model
+    t_phase = time.perf_counter()
     prompts = serve_prompts(cfg, seed, batch, prompt)
     generate(model, params, prompts[:, :64], 2)
     torch.cuda.empty_cache()
@@ -2300,10 +2393,11 @@ def generate_phase(model, params, info, phase, batch, prompt, gen, expect,
     counts = launches()
     peak = torch.cuda.max_memory_allocated()
     expected = expect(cfg)
-    spec = CacheSpec(prompt + 1, None)
-    logits, cache = model.prefill(params, {"tokens": prompts}, spec)
-    tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
-    step, cache = model.decode_step(params, tok, cache, spec)
+    logits, _ = model.prefill(params, serve_batch(cfg, prompts),
+                              CacheSpec(prompt + gen, None))
+    first_equal = bool(torch.equal(
+        torch.argmax(logits[:, -1], -1).to(torch.int32), toks[:, 0]))
+    logits, step, full, cache = decode_vs_forward(cm, params, prompts)
     ring = {}
     if "attn_local" in cfg.pattern_unit:        # the last local layer's ring
         pos = cache["unit"][cfg.pattern_unit.index("attn_local")]["pos"][-1]
@@ -2315,9 +2409,6 @@ def generate_phase(model, params, info, phase, batch, prompt, gen, expect,
             raise AssertionError(f"{phase}: decode wrote ring slot "
                                  f"{ring['ring_slot_of_first_decode']}")
     del cache
-    full, _ = model.forward(params, {"tokens": torch.cat([prompts, tok], 1)})
-    full = full[:, -1].float()
-    step = step[:, 0].float()
     torch.cuda.synchronize()
     finite = all(bool(torch.isfinite(t).all()) for t in (logits, step, full))
     rec = {"phase": phase, "arch": cfg.name,
@@ -2327,20 +2418,34 @@ def generate_phase(model, params, info, phase, batch, prompt, gen, expect,
            "batch": batch, "prompt": prompt, "gen": gen,
            **info, **stats, "peak_mem_gb": peak / 1e9, "launches": counts,
            **{f"expected_{k}_launches": v for k, v in expected.items()},
-           "first_tokens_equal_generate": bool(torch.equal(tok[:, 0],
-                                                           toks[:, 0])),
-           **ring,
-           "decode_vs_forward_max_abs_err": float((step - full).abs().max()),
+           "first_tokens_equal_generate": first_equal, **ring,
+           **gap_stats(step, full),
            "logit_abs_max": float(full.abs().max()), "finite": finite,
            "tolerance": SERVE_TOL, "first_sequence": toks[0].tolist()}
+    if check_model is not None:
+        rec["check_capacity_factor"] = cm.cfg.capacity_factor
+    if check_f32:
+        del logits
+        torch.cuda.empty_cache()
+        m32 = build_model(cm.cfg, torch.float32)
+        p32 = m32.init(torch.Generator(device="cuda").manual_seed(0),
+                       device="cuda", dtype=torch.float32)
+        _, step, full, _ = decode_vs_forward(m32, p32, prompts)
+        del m32, p32
+        torch.cuda.empty_cache()
+        rec.update(gap_stats(step, full, "f32_"), check_dtype="float32")
+        finite = finite and bool(torch.isfinite(step).all()
+                                 and torch.isfinite(full).all())
+    rec["seconds"] = time.perf_counter() - t_phase
     emit(rec)
     check_counts(phase, counts, expected)
     if toks.shape != (batch, gen) or not finite:
         raise AssertionError(f"{phase}: wrong token shape or non-finite "
                              f"logits")
-    if not rec["first_tokens_equal_generate"]:
+    if not first_equal:
         raise AssertionError(f"{phase}: prefill differs from generate")
-    max_err(step, full, SERVE_TOL, f"{phase} decode vs forward")
+    max_err(step, full, SERVE_TOL, f"{phase} decode vs forward"
+            + (" (float32)" if check_f32 else ""))
     return rec
 
 
@@ -2355,6 +2460,17 @@ def _margin_top2(row):
     return float(top[0] - top[1])
 
 
+def _tile_rows(cache, n):
+    """A one-sequence cache repeated over ``n`` rows (stacked unit
+    leaves carry the batch after the repeat axis; ``pos`` and ``t`` have
+    none)."""
+    def tile(c, axis):
+        return {k: v if k == "pos" else v.repeat_interleave(n, dim=axis)
+                for k, v in c.items()}
+    return {"prologue": [tile(c, 0) for c in cache["prologue"]],
+            "unit": [tile(c, 1) for c in cache["unit"]], "t": cache["t"]}
+
+
 def phase_serve_engine(model, params, phase="serve_engine",
                        expect=lambda cfg, requests, steps: {
                            "mamba_scan": cfg.num_layers * (requests
@@ -2363,7 +2479,11 @@ def phase_serve_engine(model, params, phase="serve_engine",
     each request's first two tokens against a lone prefill (and decode)
     of its left-padded bucket, where the top-2 margin is above the bf16
     tolerance.  ``expect`` gives each kernel's launch count from the
-    requests admitted and the engine steps."""
+    requests admitted and the engine steps.  The lone decode runs the
+    request's cache repeated over the Engine's slots, so its matrix
+    products take the Engine's shapes (a MoE router whose top-k sit
+    within a bf16 rounding of each other routes alike only on the
+    Engine's own bits, C26)."""
     from repro_torch.kernels import launches, reset_launches
     from repro_torch.serve import Engine, Request
     cfg = model.cfg
@@ -2396,8 +2516,9 @@ def phase_serve_engine(model, params, phase="serve_engine",
             params, {"tokens": torch.as_tensor(toks, device="cuda")},
             eng.spec)
         step, _ = model.decode_step(
-            params, torch.tensor([[r.output[0]]], dtype=torch.int32,
-                                 device="cuda"), cache, eng.spec)
+            params, torch.full((ENGINE_SLOTS, 1), r.output[0],
+                               dtype=torch.int32, device="cuda"),
+            _tile_rows(cache, ENGINE_SLOTS), eng.spec)
         for row, got in ((logits[0, -1], r.output[0]),
                          (step[0, -1], r.output[1])):
             if _margin_top2(row) > SERVE_TOL["atol"]:
@@ -2413,7 +2534,8 @@ def phase_serve_engine(model, params, phase="serve_engine",
            **{f"expected_{k}_launches": v for k, v in expected.items()},
            "tokens_compared_with_lone_path": compared,
            "tokens_agreeing": agreed,
-           "margin_threshold": SERVE_TOL["atol"]}
+           "margin_threshold": SERVE_TOL["atol"],
+           "lone_decode_rows": ENGINE_SLOTS}
     emit(rec)
     done = {r.rid for r in eng.done}
     if done != set(range(ENGINE_REQUESTS)) or any(
@@ -2879,21 +3001,25 @@ def phase_cluster_lm_full(card):
     return rec
 
 
-def phase_swa_dense(card):
-    """swa_attention at qwen2-1.5b's training shape, one pod's batch:
-    bf16 (4, 512, 12 heads, 2 kv heads, hd 128), window 512 (plain
-    causal), against its plain version; timed beside
-    scaled_dot_product_attention(is_causal=True) on K/V repeated to 12
-    heads; the bound: bytes (q, k, v read once, the output written
-    once) against the causal pairs' bf16 operations."""
+def check_swa_causal(card, phase, shape, b, s, h, kh, hd, seed, f32=False):
+    """swa_attention at a full causal shape (window = S, the dense attn
+    kind): bf16 (and with ``f32`` float32 too) against its plain version;
+    the bf16 call timed beside scaled_dot_product_attention(is_causal=
+    True) on K/V repeated to H heads, with device times and its bound:
+    bytes (q, k, v read once, the output written once) against the
+    causal pairs' bf16 operations."""
     from repro_torch.kernels.swa_attention import swa_attention_gqa
     from repro_torch.kernels.swa_attention.kernel import swa_attention_cuda
-    b, s, h, kh, hd = TRAIN_BATCH // TRAIN_PODS, TRAIN_SEQ, 12, 2, 128
-    rec = check_swa(card, f"dense B={b} S={s} H={h} K={kh} hd={hd} w={s}",
-                    b, s, h, kh, hd, s, torch.bfloat16, 64)
-    g = torch.Generator(device="cuda").manual_seed(64)
-    q, k, v = (torch.randn(shape, device="cuda", generator=g).bfloat16()
-               for shape in ((b, s, h, hd), (b, s, kh, hd), (b, s, kh, hd)))
+    label = f"B={b} S={s} H={h} K={kh} hd={hd} w={s}"
+    rec = check_swa(card, f"{shape} {label}", b, s, h, kh, hd, s,
+                    torch.bfloat16, seed)
+    if f32:
+        rec["max_abs_err_f32"] = check_swa(
+            card, f"{shape} {label}", b, s, h, kh, hd, s, torch.float32,
+            seed + 1)["max_abs_err"]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(shape_, device="cuda", generator=g).bfloat16()
+               for shape_ in ((b, s, h, hd), (b, s, kh, hd), (b, s, kh, hd)))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt = q.transpose(1, 2)
     kt, vt = (t.repeat_interleave(h // kh, dim=2).transpose(1, 2)
@@ -2907,11 +3033,11 @@ def phase_swa_dense(card):
     nops = 4 * b * h * hd * (s * (s + 1) // 2)
     tb, to = nbytes / card.bw * 1e3, nops / card.bf16 * 1e3
     rec.update(
-        phase="swa_attention_dense", shape="qwen2-1.5b training, one pod",
+        phase=phase, shape=shape,
         ms=time_ms(lambda: swa_attention_cuda(q, k, v, s)),
         plain_ms=time_ms(lambda: swa_attention_gqa(q, k, v, s)),
         library="torch.nn.functional.scaled_dot_product_attention("
-                "is_causal=True), K/V repeated to 12 heads",
+                f"is_causal=True), K/V repeated to {h} heads",
         library_ms=time_ms(lib),
         library_max_abs_err=float((lib().transpose(1, 2).float()
                                    - ref.float()).abs().max()),
@@ -2925,6 +3051,319 @@ def phase_swa_dense(card):
     rec["device_tflops"] = nops / rec["device_ms"] / 1e9
     emit(rec)
     return rec
+
+
+def phase_swa_dense(card):
+    """swa_attention at qwen2-1.5b's training shape, one pod's batch:
+    bf16 (4, 512, 12 heads, 2 kv heads, hd 128), window 512 (plain
+    causal); ``check_swa_causal``."""
+    return check_swa_causal(card, "swa_attention_dense",
+                            "qwen2-1.5b training, one pod",
+                            TRAIN_BATCH // TRAIN_PODS, TRAIN_SEQ, 12, 2, 128,
+                            64)
+
+
+# -- the decoder-only families -------------------------------------------------
+# chatglm3-6b (arXiv:2406.12793: 2-D partial RoPE), qwen2-vl-7b
+# (arXiv:2409.12191: M-RoPE after a 256-position vision prefix, here zero
+# embeddings as the serve CLI gives them), granite-moe-3b-a800m (40
+# experts top-8, dispatch) and llama4-scout-17b-a16e (16 experts top-1
+# and a shared expert; 4.40 GB a layer in bf16, 215 GB at its 48 layers:
+# its depth is cut to what fits one card beside the prefill), at their
+# published widths in bf16, weights drawn on the card from a seed; every
+# attention layer's prefill through swa_attention with window = S.
+CHATGLM_ARCH = "chatglm3-6b"
+VL_ARCH = "qwen2-vl-7b"
+GRANITE_ARCH = "granite-moe-3b-a800m"
+LLAMA4_ARCH = "llama4-scout-17b-a16e"
+LLAMA4_CUT = dict(num_layers=14, unit_repeats=0)
+# B7 at each family's prefill (batch 4, prompt 512; qwen2-vl's prefill
+# runs the 256-position prefix and the prompt: S = 768)
+SWA_FAMILY_SHAPES = {CHATGLM_ARCH: (4, 512, 32, 2, 128),
+                     GRANITE_ARCH: (4, 512, 24, 8, 64),
+                     LLAMA4_ARCH: (4, 512, 40, 8, 128),
+                     VL_ARCH: (4, 768, 28, 4, 128)}
+# the decode-against-forward check in float32 (C31): qwen2-vl's bf16 gap
+# (the bf16 KV cache over its 256-position prefix) reaches past the bf16
+# bound on a few logits; it is recorded, the float32 check must hold
+CHECK_F32 = (VL_ARCH,)
+PHASE_KEY = {CHATGLM_ARCH: "chatglm3", VL_ARCH: "qwen2_vl",
+             GRANITE_ARCH: "granite_moe", LLAMA4_ARCH: "llama4_scout"}
+KV_QUANT_GEN = 32
+# JAX tests/test_kv_quant.py's bounds: each step's logits with cosine
+# above 0.995 against the bf16 cache's, greedy tokens agreeing on 3/4 of
+# the steps, the int8 cache under 0.7x the bf16 cache's bytes
+KV_QUANT_COS, KV_QUANT_AGREE, KV_QUANT_BYTES = 0.995, 0.75, 0.7
+# granite-moe-3b-a800m trained at full width with its depth cut (its
+# 32 layers hold a 54 GB 2-pod f32 state before activations)
+TRAIN_MOE_CUT = dict(num_layers=8, unit_repeats=0)
+TRAIN_MOE_PODS, TRAIN_MOE_BATCH, TRAIN_MOE_SEQ, TRAIN_MOE_STEPS = 2, 8, 512, 3
+
+
+def phase_swa_families(card):
+    """swa_attention at each family's prefill shape (window = S), in bf16
+    and float32 against its plain version, the bf16 call timed beside
+    SDPA (is_causal=True, K/V repeated to H)."""
+    return {arch: check_swa_causal(card, "swa_attention_family",
+                                   f"{arch} prefill", *shape, seed=70 + i,
+                                   f32=True)
+            for i, (arch, shape) in enumerate(SWA_FAMILY_SHAPES.items())}
+
+
+def no_drop(model):
+    """The same model at capacity_factor = E / top_k, where dispatch
+    drops no token (a ragged forward groups otherwise than a prefill)."""
+    import dataclasses
+    from repro_torch.models.api import build_model
+    cfg = model.cfg
+    return build_model(dataclasses.replace(
+        cfg, capacity_factor=cfg.num_experts / cfg.experts_per_tok))
+
+
+def moe_drop_share(model, params, batch):
+    """The share of (token, slot) assignments that ``model``'s prefill of
+    ``batch`` drops, summed over its MoE layers (read off each layer's
+    dispatch tensor) and a layer."""
+    from repro_torch.models import mlp
+    from repro_torch.models.attention import CacheSpec
+    real = mlp.dispatch_tensors
+    layers = []
+
+    def counting(top_p, top_i, *a):
+        dispatch, combine = real(top_p, top_i, *a)
+        layers.append((float(dispatch.float().sum()), top_i.numel(),
+                       int(dispatch.shape[-1])))
+        return dispatch, combine
+    mlp.dispatch_tensors = counting
+    try:
+        with torch.no_grad():
+            model.prefill(params, batch, CacheSpec(
+                batch["tokens"].shape[1] + 1, None))
+    finally:
+        mlp.dispatch_tensors = real
+    kept = sum(k for k, _, _ in layers)
+    total = sum(n for _, n, _ in layers)
+    return {"prefill_assignments": total,
+            "prefill_dropped": total - kept,
+            "prefill_drop_share": 1.0 - kept / total,
+            "prefill_drop_share_by_layer": [1.0 - k / n
+                                            for k, n, _ in layers],
+            "prefill_capacity": layers[0][2]}
+
+
+def attn_prefill_expect(cfg):
+    """One swa_attention a layer in the prefill (decode attends in
+    plain PyTorch over the cache)."""
+    return {"swa_attention": cfg.num_layers}
+
+
+def phase_serve_family(arch, cut=None, engine=False):
+    """``arch`` at full width (depth cut by ``cut``): ``generate_phase``
+    (batch 4, prompt 512, 32 tokens; the MoE configs' check at a capacity
+    where nothing drops, and the share that the published capacity drops
+    in a prefill), and with ``engine`` the Engine (4 slots, 8 requests,
+    the lone decode at the Engine's row count)."""
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.configs import get_config
+    model, params, info = serve_model(arch, **(cut or {}))
+    if cut:
+        info["cut"] = (f"depth: {get_config(arch).num_layers} layers cut "
+                       f"to {model.cfg.num_layers}; width as published")
+    moe = bool(model.cfg.num_experts)
+    if moe:
+        info.update(moe_drop_share(model, params, serve_batch(
+            model.cfg, serve_prompts(model.cfg))))
+        info["capacity_factor"] = model.cfg.capacity_factor
+        torch.cuda.empty_cache()
+    key = PHASE_KEY[arch]
+    recs = {f"serve_generate_{key}": generate_phase(
+        model, params, info, f"serve_generate_{key}", SERVE_BATCH,
+        SERVE_PROMPT, SERVE_GEN, attn_prefill_expect,
+        check_model=no_drop(model) if moe else None,
+        check_f32=arch in CHECK_F32)}
+    torch.cuda.empty_cache()
+    if engine:
+        recs[f"serve_engine_{key}"] = phase_serve_engine(
+            model, params, f"serve_engine_{key}",
+            lambda cfg, requests, steps: {
+                "swa_attention": cfg.num_layers * requests})
+        torch.cuda.empty_cache()
+    return model, params, recs
+def phase_kv_quant(model, params):
+    """chatglm3-6b's int8 KV cache against its bf16 cache: batch 4, prompt
+    512, 32 greedy tokens from each cache on its own, then the int8 cache
+    fed the bf16 path's tokens (the cache's own error, without the
+    divergence one flipped token starts).  Each teacher-forced step's
+    logits must have cosine above 0.995 with the bf16 cache's and its
+    greedy tokens agree on 3/4 of the steps (JAX tests/test_kv_quant.py's
+    bounds); the free runs' cosines and agreement are recorded; the int8
+    cache's bytes must be under 0.7x the bf16 cache's."""
+    from repro_torch.core.types import tree_leaves
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.models.attention import CacheSpec
+    cfg = model.cfg
+    prompts = serve_prompts(cfg, 5)
+    t0 = time.perf_counter()
+
+    def run(quant, feed=None):
+        spec = CacheSpec(SERVE_PROMPT + KV_QUANT_GEN, None, quant)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        logits, cache = model.prefill(params, {"tokens": prompts}, spec)
+        nbytes = sum(l.numel() * l.element_size()
+                     for l in tree_leaves(cache))
+        rows, toks = [logits[:, -1].float()], []
+        for i in range(KV_QUANT_GEN - 1):
+            tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+            toks.append(tok)
+            logits, cache = model.decode_step(
+                params, tok if feed is None else feed[i], cache, spec)
+            rows.append(logits[:, -1].float())
+        toks.append(torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None])
+        torch.cuda.synchronize()
+        return (torch.stack(rows, 1), torch.cat(toks, 1), nbytes,
+                time.perf_counter() - t1)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    ref, ref_toks, ref_bytes, ref_s = run(False)
+    counts_bf16 = launches()
+    reset_launches()
+    q_free, q_toks, q_bytes, q_s = run(True)
+    counts = launches()
+    q_forced, q_forced_toks, _, _ = run(
+        True, feed=[t[:, None] for t in ref_toks[:, :-1].unbind(1)])
+    peak = torch.cuda.max_memory_allocated()
+
+    def cos(a, b):
+        return torch.nn.functional.cosine_similarity(a, b, dim=-1)
+    cos_forced, cos_free = cos(q_forced, ref), cos(q_free, ref)
+    agree = float((q_toks == ref_toks).float().mean())
+    agree_forced = float((q_forced_toks == ref_toks).float().mean())
+    steps = KV_QUANT_GEN - 1
+    rec = {"phase": "kv_quant", "arch": cfg.name, "batch": SERVE_BATCH,
+           "prompt": SERVE_PROMPT, "gen": KV_QUANT_GEN,
+           "cache_bytes_bf16": ref_bytes, "cache_bytes_int8": q_bytes,
+           "cache_bytes_ratio": q_bytes / ref_bytes,
+           "seconds_bf16": ref_s, "seconds_int8": q_s,
+           "tok_per_s_bf16": SERVE_BATCH * steps / ref_s,
+           "tok_per_s_int8": SERVE_BATCH * steps / q_s,
+           "cosine_min_teacher_forced": float(cos_forced.min()),
+           "cosine_min_free": float(cos_free.min()),
+           "cosine_min_free_by_step": [float(c) for c in
+                                       cos_free.min(0).values],
+           "greedy_agreement_free": agree,
+           "greedy_agreement_teacher_forced": agree_forced,
+           "bounds": {"cosine": KV_QUANT_COS, "agreement": KV_QUANT_AGREE,
+                      "bytes_ratio": KV_QUANT_BYTES},
+           "peak_mem_gb": peak / 1e9, "seconds": time.perf_counter() - t0,
+           "launches": {k: n for k, n in counts.items() if n},
+           "launches_bf16": {k: n for k, n in counts_bf16.items() if n}}
+    emit(rec)
+    check_counts("kv_quant", counts, attn_prefill_expect(cfg))
+    if rec["cosine_min_teacher_forced"] <= KV_QUANT_COS or \
+            agree_forced < KV_QUANT_AGREE or \
+            rec["cache_bytes_ratio"] >= KV_QUANT_BYTES:
+        raise AssertionError(
+            f"kv_quant: cosine {rec['cosine_min_teacher_forced']}, "
+            f"agreement {agree_forced}, bytes ratio "
+            f"{rec['cache_bytes_ratio']}")
+    return rec
+
+
+def phase_train_granite_moe():
+    """launch.train.main on granite-moe-3b-a800m at full width with its
+    depth cut (TRAIN_MOE_CUT: its config read through a wrapper of the
+    CLI's get_config), 2 pods, batch 8 (4 a pod), 512 tokens, 3 steps;
+    each step's loss (the cross entropy plus 0.01 x the router loss) and
+    the final state read through a wrapper around build_train_step.
+    Checks: finite losses, v0 == sum_p v_p bit for bit, swa_attention
+    twice a layer a pod a step."""
+    import dataclasses
+    from repro_torch.core.types import tree_leaves
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.launch import train as train_mod
+    real_cfg, real_step = train_mod.get_config, train_mod.build_train_step
+    cfg = dataclasses.replace(real_cfg(GRANITE_ARCH), **TRAIN_MOE_CUT)
+    steps, last = [], {}
+
+    def recording(*a, **kw):
+        step = real_step(*a, **kw)
+
+        def timed(state, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            steps.append((float(metrics["loss"]), time.perf_counter() - t0))
+            last["state"] = state
+            return state, metrics
+        return timed
+
+    train_mod.get_config = lambda name: dataclasses.replace(
+        real_cfg(name), **TRAIN_MOE_CUT)
+    train_mod.build_train_step = recording
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        train_mod.main(["--arch", GRANITE_ARCH, "--pods", str(TRAIN_MOE_PODS),
+                        "--batch", str(TRAIN_MOE_BATCH), "--seq",
+                        str(TRAIN_MOE_SEQ), "--steps", str(TRAIN_MOE_STEPS),
+                        "--log-every", "1"])
+    finally:
+        train_mod.get_config, train_mod.build_train_step = real_cfg, real_step
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launches()
+    state = last.pop("state")
+    rec = train_record("train_granite_moe", cfg, steps, counts, secs,
+                       TRAIN_MOE_BATCH, TRAIN_MOE_SEQ,
+                       torch.cuda.max_memory_allocated())
+    theta = tree_leaves(state["theta"])
+    rec.update(cut=f"depth: {real_cfg(GRANITE_ARCH).num_layers} layers cut "
+               f"to {cfg.num_layers}; width as published",
+               pods=TRAIN_MOE_PODS, compute="bfloat16", state="float32",
+               experts=cfg.num_experts, top_k=cfg.experts_per_tok,
+               params=sum(l.numel() for l in theta),
+               state_gb=sum(l.numel() * l.element_size()
+                            for l in tree_leaves(state)) / 1e9,
+               expected_launches=kernel_counts(
+                   cfg, TRAIN_MOE_PODS * TRAIN_MOE_STEPS))
+    rec["v0_is_sum_of_pod_momenta_bit_for_bit"] = all(
+        torch.equal(torch.sum(v, dim=0), v0) for v, v0 in zip(
+            tree_leaves(state["v"]), tree_leaves(state["v0"])))
+    finite = all(np.isfinite(l) for l, _ in steps) and all(
+        bool(torch.isfinite(l).all()) for l in theta)
+    del state, theta
+    emit(rec)
+    if not finite or len(steps) != TRAIN_MOE_STEPS:
+        raise AssertionError("train_granite_moe: non-finite losses or "
+                             "parameters")
+    if not rec["v0_is_sum_of_pod_momenta_bit_for_bit"]:
+        raise AssertionError("train_granite_moe: v0 is not the sum of the "
+                             "pods' momenta")
+    check_counts("train_granite_moe", counts, rec["expected_launches"])
+    return rec
+
+
+def phase_families(paths):
+    """The decoder-only families served at full width (llama4 with
+    its depth cut), chatglm3's int8 KV cache, granite-moe trained with
+    its depth cut; each record into ``paths``."""
+    model, params, recs = phase_serve_family(CHATGLM_ARCH)
+    paths.update(recs)
+    paths["kv_quant"] = phase_kv_quant(model, params)
+    del model, params
+    torch.cuda.empty_cache()
+    for arch, kw in ((VL_ARCH, {}), (GRANITE_ARCH, {"engine": True}),
+                     (LLAMA4_ARCH, {"cut": LLAMA4_CUT})):
+        model, params, recs = phase_serve_family(arch, **kw)
+        paths.update(recs)
+        del model, params
+        torch.cuda.empty_cache()
+    paths["train_granite_moe"] = phase_train_granite_moe()
+    torch.cuda.empty_cache()
 
 
 def main():
@@ -2965,7 +3404,14 @@ def main():
     rs = phase_rglru_scan(card)
     sw = phase_swa_attention(card)
     sd = phase_swa_dense(card)
+    sf = phase_swa_families(card)
     phase_lm_grad()
+    # first of the model phases: llama4-scout's 14 layers (65.8 GB, and
+    # a layer's draw beside them) need the card as a fresh process has
+    # it; after the cluster and serve phases the same draw ran out of
+    # memory
+    families = {}
+    phase_families(families)
     conf = configuration()
     main_rec, hist_e, final_e = phase_main_path(conf)
     paths = {"main_path": main_rec,
@@ -3017,6 +3463,7 @@ def main():
         model, params, "serve_engine_rg", rg_engine_expect)
     del model, params
     torch.cuda.empty_cache()
+    paths.update(families)
     paths["train_qwen2"] = phase_train_qwen2()
     torch.cuda.empty_cache()
     paths["train_rg"] = phase_train_cut(RG_ARCH)
@@ -3120,6 +3567,12 @@ def main():
         kernels[6][f"{key}_dense_train"] = sd[key]
     kernels[6]["launches_train_qwen2"] = \
         paths["train_qwen2"]["launches"]["swa_attention"]
+    for arch, rec in sf.items():
+        for key in ("ms", "device_ms", "bound_ms", "bound_by", "plain_ms",
+                    "library_ms", "library_device_ms", "max_abs_err",
+                    "max_abs_err_f32", "device_tflops",
+                    "device_share_of_bound"):
+            kernels[6][f"{key}_{PHASE_KEY[arch]}"] = rec[key]
     emit({"kernels": kernels})
     print(card.smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": card.name,

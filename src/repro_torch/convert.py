@@ -4,10 +4,12 @@ Inputs are numpy only (the caller does ``np.asarray`` on the JAX side),
 so this module imports no JAX:
 
 * ``params_from_numpy(tree)``: a tree of arrays (e.g. the MLP's
-  ``[{"w", "b"}, ...]``, or a JAX decode cache, ``prefill``'s or
-  ``init_cache``'s: ``k``, ``v`` bfloat16, ``pos`` and ``t`` int32,
-  ``conv``, ``h``, ``ssm``) -> the same tree of tensors, leaf by leaf in
-  its own type, so both packages can decode from one cache;
+  ``[{"w", "b"}, ...]``, a JAX MoE layer's ``router``, ``w_gate``,
+  ``w_up``, ``w_down`` and ``shared``, or a JAX decode cache,
+  ``prefill``'s or ``init_cache``'s: ``k``, ``v`` bfloat16 or int8 with
+  float32 ``k_scale``, ``v_scale``, ``pos`` and ``t`` int32, ``conv``,
+  ``h``, ``ssm``) -> the same tree of tensors, leaf by leaf in its own
+  type, so both packages can decode from one cache;
 * ``flat_state_from_numpy(flat)``: the JAX ``FlatAlgorithm`` state dict
   of any flat-eligible member (``theta``, ``v``, ``v0``, ``u2``,
   ``sent``, ``wscal``, ``rate``, ``t``, ``lr_prev``, ``vscale``,
@@ -25,7 +27,9 @@ so this module imports no JAX:
   every float32 leaf to bfloat16).  Every block kind ported so far
   carries over leaf by leaf: mamba's, the RG-LRU's (``in_x``,
   ``in_gate``, ``conv_w``, ``w_a``, ``w_i``, ``lam``, ...), attention's
-  (``wq``, ``wk``, ``wv``, ``wo``) and the MLP's.
+  (``wq``, ``wk``, ``wv``, ``wo``, the qkv biases), the MLP's and the
+  MoE layer's (``router`` (d, E), the experts stacked (E, d, ff) and (E,
+  ff, d) under the unit's repeat axis, the optional ``shared`` MLP).
 
 numpy arrays of JAX's bfloat16 (``ml_dtypes``) become torch bfloat16
 tensors exactly (through float32, which holds every bfloat16 value).

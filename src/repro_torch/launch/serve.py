@@ -6,9 +6,18 @@
       --arch recurrentgemma-9b --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
       --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch granite-moe-3b-a800m --reduced --device cpu
 
-Ported families: falcon-mamba-7b, recurrentgemma-9b and the dense
-qwen2 configs (the others raise naming their ROADMAP item).
+Ported families: falcon-mamba-7b, recurrentgemma-9b, the dense configs
+(the qwen2s and chatglm3-6b with its 2-D RoPE), the MoE configs
+(granite-moe-3b-a800m, llama4-scout-17b-a16e) and qwen2-vl-7b (M-RoPE
+and a vision prefix); seamless-m4t-large-v2 raises naming its ROADMAP
+item.  As in the JAX package, a vision config's prompts follow a zero
+prefix of ``modality_tokens`` embeddings, an M-RoPE config takes the
+(3, B, P + S) positions, and the cache holds S + gen positions (the
+prompt's, not the prefix's: a prefixed prefill keeps its last S + gen
+positions).
 ``--window`` caps every attention cache at that many positions and
 makes the dense layers attend within it (recurrentgemma's local layers
 keep their own window of ``cfg.window`` either way).
@@ -42,6 +51,25 @@ def _greedy(logits):
     return torch.argmax(logits[:, -1, :], -1).to(torch.int32)[:, None]
 
 
+def serve_batch(cfg, prompts):
+    """The prefill batch of ``prompts`` (B, S): a zero modality prefix
+    (B, ``modality_tokens``, d) in bfloat16 for a vision config, and the
+    (3, B, P + S) positions for M-RoPE."""
+    b, s = prompts.shape
+    batch = {"tokens": prompts}
+    total = s
+    if cfg.modality == "vision":
+        batch["embeds"] = torch.zeros((b, cfg.modality_tokens, cfg.d_model),
+                                      dtype=torch.bfloat16,
+                                      device=prompts.device)
+        total += cfg.modality_tokens
+    if cfg.rope == "mrope":
+        batch["positions"] = torch.arange(
+            total, dtype=torch.int32, device=prompts.device).expand(
+                3, b, total)
+    return batch
+
+
 def generate(model, params, prompts, gen_len: int,
              window: int | None = None):
     """Greedy batched generation; returns (tokens (B, gen), stats)."""
@@ -52,7 +80,8 @@ def generate(model, params, prompts, gen_len: int,
 
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = model.prefill(params, {"tokens": prompts}, spec)
+    logits, cache = model.prefill(params, serve_batch(model.cfg, prompts),
+                                  spec)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
 

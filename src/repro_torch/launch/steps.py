@@ -72,41 +72,57 @@ def init_train_state(model: Model, gen, num_pods: int = 1, device="cuda"):
     }
 
 
-def _split(tokens, n: int):
-    """(n, B/n, ...) when n divides the batch, else the batch repeated n
+def _split_leaf(leaf, n: int):
+    """(n, B/n, ...) when n divides the batch, else the leaf repeated n
     times (the JAX step's broadcast)."""
-    if tokens.dim() >= 2 and tokens.shape[0] % n == 0:
-        return tokens.reshape((n, tokens.shape[0] // n)
-                              + tuple(tokens.shape[1:]))
-    return tokens[None].expand((n,) + tuple(tokens.shape))
+    if leaf.dim() >= 2 and leaf.shape[0] % n == 0:
+        return leaf.reshape((n, leaf.shape[0] // n) + tuple(leaf.shape[1:]))
+    return leaf[None].expand((n,) + tuple(leaf.shape))
+
+
+def _split(batch: dict, n: int) -> list[dict]:
+    """The batch cut into n parts along its batch axis, as the JAX step
+    cuts it over pods and over microbatches: axis 0 of ``tokens``,
+    ``embeds`` and every other leaf, axis 1 of M-RoPE's (3, B, S)
+    ``positions``."""
+    parts = {}
+    for key, leaf in batch.items():
+        if key == "positions" and leaf.dim() == 3:
+            parts[key] = leaf.reshape(
+                3, n, leaf.shape[1] // n, leaf.shape[2]).movedim(1, 0)
+        else:
+            parts[key] = _split_leaf(leaf, n)
+    return [{key: part[i] for key, part in parts.items()} for i in range(n)]
 
 
 def build_train_step(model: Model, settings: TrainSettings,
                      schedule: Schedule | None = None):
     """Returns ``step(state, batch) -> (state, metrics)``, one pod round.
-    The pod count is the leading axis of ``state["v"]``; the batch's
-    leading axis splits over the pods.  ``state`` is updated in place
-    and returned; metrics: ``loss`` (the pods' mean), ``lr`` and
-    ``grad_norm`` (the L2 norm of every pod's gradient together, summed
-    leaf by leaf over the pods as they go)."""
+    The pod count is the leading axis of ``state["v"]``; the batch (a
+    dict: ``tokens``, and ``embeds`` and ``positions`` where the model
+    takes them) splits over the pods along its batch axis (``_split``),
+    and each pod's part over the microbatches.  The loss is ``lm_loss``:
+    the cross entropy plus 0.01 times the MoE router loss.  ``state`` is
+    updated in place and returned; metrics: ``loss`` (the pods' mean),
+    ``lr`` and ``grad_norm`` (the L2 norm of every pod's gradient
+    together, summed leaf by leaf over the pods as they go)."""
     sched = schedule if schedule is not None else constant(settings.lr)
     mb = settings.microbatches
 
-    def value_and_grad(leaves16, treedef, tokens):
+    def value_and_grad(leaves16, treedef, batch):
         with torch.enable_grad():
-            loss = model.loss(tree_unflatten(treedef, leaves16),
-                              {"tokens": tokens})
+            loss = model.loss(tree_unflatten(treedef, leaves16), batch)
             grads = torch.autograd.grad(loss, leaves16)
         return loss.detach(), grads
 
-    def pod_grad(leaves16, treedef, tokens):
+    def pod_grad(leaves16, treedef, batch):
         if mb <= 1:                 # bfloat16, widened leaf by leaf below
-            return value_and_grad(leaves16, treedef, tokens)
+            return value_and_grad(leaves16, treedef, batch)
         loss_sum = torch.zeros((), dtype=torch.float32,
-                               device=tokens.device)
+                               device=batch["tokens"].device)
         g_sum = [torch.zeros(l.shape, dtype=torch.float32, device=l.device)
                  for l in leaves16]
-        for bi in _split(tokens, mb):
+        for bi in _split(batch, mb):
             loss, g = value_and_grad(leaves16, treedef, bi)
             loss_sum = loss_sum + loss
             for a, x in zip(g_sum, g):
@@ -128,8 +144,8 @@ def build_train_step(model: Model, settings: TrainSettings,
         for l in leaves16:
             l.requires_grad_(True)
         losses, sq = [], [0.0] * len(v)
-        for p, tokens in enumerate(_split(batch["tokens"], num_pods)):
-            loss, g = pod_grad(leaves16, treedef, tokens)
+        for p, part in enumerate(_split(batch, num_pods)):
+            loss, g = pod_grad(leaves16, treedef, part)
             losses.append(loss)
             with torch.no_grad():
                 for i, (vi, gi) in enumerate(zip(v, g)):

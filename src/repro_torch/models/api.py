@@ -78,17 +78,31 @@ class Model:
     # -- concrete batches ----------------------------------------------------
     def make_batch(self, seq_len: int, batch_size: int, seed: int = 0,
                    device="cuda"):
-        """Tokens from the JAX package's numpy stream (the same seed gives
-        the same tokens).  The modality prefix, M-RoPE positions and the
-        encoder input wait for their families (ROADMAP A7)."""
+        """A batch from the JAX package's numpy stream, drawn in its
+        order, so the same seed gives the same batch: the tokens (B, S -
+        P), then for a vision config the modality prefix ``embeds`` (B,
+        P, d) ~ 0.02 N(0, 1) in bfloat16 (P = ``modality_tokens``), and
+        for M-RoPE the (3, B, S) positions.  The encoder input waits for
+        the enc-dec family (ROADMAP A7(d)(iv))."""
         cfg = self.cfg
-        if cfg.modality == "vision" or cfg.rope == "mrope" or cfg.is_encdec:
-            raise NotImplementedError(f"{cfg.name}: its family is not "
-                                      f"ported yet (ROADMAP A7)")
+        if cfg.is_encdec:
+            raise NotImplementedError(f"{cfg.name}: the enc-dec family is "
+                                      f"not ported yet: ROADMAP A7(d)(iv)")
         rng = np.random.default_rng(seed)
-        tokens = rng.integers(0, cfg.vocab_size, size=(batch_size, seq_len))
-        return {"tokens": torch.as_tensor(tokens, dtype=torch.int32,
-                                          device=device)}
+        p = cfg.modality_tokens if cfg.modality == "vision" else 0
+        tokens = rng.integers(0, cfg.vocab_size,
+                              size=(batch_size, seq_len - p))
+        batch = {"tokens": torch.as_tensor(tokens, dtype=torch.int32,
+                                           device=device)}
+        if p:
+            embeds = rng.normal(size=(batch_size, p, cfg.d_model)) * 0.02
+            batch["embeds"] = torch.as_tensor(
+                embeds.astype(np.float32), device=device).to(torch.bfloat16)
+        if cfg.rope == "mrope":
+            batch["positions"] = torch.arange(
+                seq_len, dtype=torch.int32, device=device).expand(
+                    3, batch_size, seq_len).clone()
+        return batch
 
 
 def build_model(cfg: ArchConfig, dtype=torch.bfloat16) -> Model:

@@ -8,12 +8,16 @@ S.  It goes through ``kernels.swa_attention.swa_attention`` on every
 device (the CUDA kernel on the card, its plain version on the CPU),
 where the JAX package runs its chunked ``jnp`` flash recurrence and
 names the Pallas kernel as the TPU route.  The other cases raise,
-naming the ROADMAP item that brings them: non-causal attention (the
-enc-dec family, A7(d)), ``segments`` (packed sequences, A7(e)), int8
-(``quant=True``) caches and ``cross_attention`` (A7(d)).
+naming the ROADMAP item that brings them: non-causal attention and
+``cross_attention`` (the enc-dec family, A7(d)(iv)) and ``segments``
+(packed sequences, A7(e)).
 
 ``decode_attention`` is plain PyTorch (einsums in the JAX package, no
-Pallas kernel there).  It takes the step ``t`` as a scalar with ``pos``
+Pallas kernel there).  With ``CacheSpec(quant=True)`` the cache holds
+int8 K/V with a float32 scale per (batch, position, head)
+(``quantize_kv``: amax / 127 floored at 1e-8, rounded half to even,
+clipped to +-127), and decode attends over the dequantized float32 K/V,
+as in the JAX package.  It takes the step ``t`` as a scalar with ``pos``
 of shape (capacity,), as ``generate`` runs it, or one step per row,
 ``t`` of shape (B,) with ``pos`` of shape (B, capacity), as the
 continuous-batching Engine runs it: each row writes its own ring slot
@@ -27,7 +31,8 @@ import dataclasses
 import torch
 
 from ..kernels.swa_attention import swa_attention
-from .common import dense_init, rope_1d, rope_2d_partial, rope_mrope
+from .common import (default_mrope_sections, dense_init, rope_1d,
+                     rope_2d_partial, rope_mrope)
 
 NEG_INF = -1e30
 
@@ -74,7 +79,7 @@ def _proj(x, w):
 
 def _project_qkv(params, x, x_kv=None):
     if x_kv is not None:
-        raise _unported("cross-attention", "A7(d), the enc-dec family")
+        raise _unported("cross-attention", "A7(d)(iv), the enc-dec family")
     q = _proj(x, params["wq"])
     k = _proj(x, params["wk"])
     v = _proj(x, params["wv"])
@@ -86,7 +91,8 @@ def _project_qkv(params, x, x_kv=None):
 
 
 def apply_rope(q, k, rope, positions):
-    """rope: 'none'|'1d' ('2d' and 'mrope' raise); positions: (B,S)."""
+    """rope: 'none'|'1d'|'2d'|'mrope'; positions: (B,S), or (3,B,S) for
+    'mrope'."""
     if rope == "none":
         return q, k
     if rope == "1d":
@@ -94,7 +100,8 @@ def apply_rope(q, k, rope, positions):
     if rope == "2d":
         return rope_2d_partial(q, positions), rope_2d_partial(k, positions)
     if rope == "mrope":
-        return rope_mrope(q, positions), rope_mrope(k, positions)
+        sec = default_mrope_sections(q.shape[-1])
+        return rope_mrope(q, positions, sec), rope_mrope(k, positions, sec)
     raise ValueError(rope)
 
 
@@ -117,7 +124,8 @@ def flash_attention(q, k, v, *, causal=True, window=None, segments=None):
     if segments is not None:
         raise _unported("attention over packed segments", "A7(e)")
     if not causal:
-        raise _unported("non-causal attention", "A7(d), the enc-dec family")
+        raise _unported("non-causal attention",
+                        "A7(d)(iv), the enc-dec family")
     if window is None:
         window = max(q.shape[1], 1)
     return swa_attention(q.contiguous(), k.contiguous(), v.contiguous(),
@@ -125,7 +133,7 @@ def flash_attention(q, k, v, *, causal=True, window=None, segments=None):
 
 
 def cross_attention(q, k, v):
-    raise _unported("cross-attention", "A7(d), the enc-dec family")
+    raise _unported("cross-attention", "A7(d)(iv), the enc-dec family")
 
 
 # ---------------------------------------------------------------------------
@@ -133,16 +141,35 @@ def cross_attention(q, k, v):
 # ---------------------------------------------------------------------------
 def init_kv_cache(batch, capacity, num_kv_heads, head_dim,
                   dtype=torch.bfloat16, quant=False, device="cuda"):
+    """Empty cache: ``k``, ``v`` (B, capacity, K, hd) in ``dtype``, or
+    int8 with float32 ``k_scale``, ``v_scale`` (B, capacity, K) when
+    ``quant``; ``pos`` (capacity,) int32, -1 where unwritten."""
+    shape = (batch, capacity, num_kv_heads, head_dim)
     if quant:
-        raise _unported("the int8 KV cache", "A7(d)")
-    return {
-        "k": torch.zeros((batch, capacity, num_kv_heads, head_dim),
-                         dtype=dtype, device=device),
-        "v": torch.zeros((batch, capacity, num_kv_heads, head_dim),
-                         dtype=dtype, device=device),
-        "pos": torch.full((capacity,), -1, dtype=torch.int32,
-                          device=device),
-    }
+        cache = {name: torch.zeros(shape, dtype=torch.int8, device=device)
+                 for name in ("k", "v")}
+        cache.update({name: torch.zeros(shape[:3], dtype=torch.float32,
+                                        device=device)
+                      for name in ("k_scale", "v_scale")})
+    else:
+        cache = {name: torch.zeros(shape, dtype=dtype, device=device)
+                 for name in ("k", "v")}
+    cache["pos"] = torch.full((capacity,), -1, dtype=torch.int32,
+                              device=device)
+    return cache
+
+
+def quantize_kv(x):
+    """Symmetric int8 per-(batch, position, head): returns (q int8,
+    scale float32 of x's shape without its last axis)."""
+    xf = x.float()
+    scale = torch.clamp_min(torch.amax(torch.abs(xf), dim=-1) / 127.0, 1e-8)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_kv(q, scale, dtype=torch.float32):
+    return (q.float() * scale[..., None]).to(dtype)
 
 
 def decode_attention(params, x, cache, t, spec: CacheSpec, rope="1d",
@@ -154,8 +181,6 @@ def decode_attention(params, x, cache, t, spec: CacheSpec, rope="1d",
     (``pos >= 0``), not after ``t`` and, for sliding windows, after
     ``t - window``.  Returns (y (B,1,d), new cache); the old cache is not
     written to."""
-    if spec.quant:
-        raise _unported("the int8 KV cache", "A7(d)")
     b = x.shape[0]
     per_row = t.dim() == 1
     t_b = t if per_row else t.expand(b)
@@ -165,8 +190,21 @@ def decode_attention(params, x, cache, t, spec: CacheSpec, rope="1d",
     q, k_new = apply_rope(q, k_new, rope, positions)
     slot = torch.remainder(t_b, spec.capacity).long()
     rows = torch.arange(b, device=x.device)
-    k = cache["k"].index_put((rows, slot), k_new[:, 0].to(cache["k"].dtype))
-    v = cache["v"].index_put((rows, slot), v_new[:, 0].to(cache["v"].dtype))
+
+    def put(name, new):
+        return cache[name].index_put((rows, slot),
+                                     new[:, 0].to(cache[name].dtype))
+
+    if spec.quant:
+        (k8, ks), (v8, vs) = quantize_kv(k_new), quantize_kv(v_new)
+        new_cache = {"k": put("k", k8), "v": put("v", v8),
+                     "k_scale": put("k_scale", ks),
+                     "v_scale": put("v_scale", vs)}
+        k = dequantize_kv(new_cache["k"], new_cache["k_scale"])
+        v = dequantize_kv(new_cache["v"], new_cache["v_scale"])
+    else:
+        new_cache = {"k": put("k", k_new), "v": put("v", v_new)}
+        k, v = new_cache["k"], new_cache["v"]
     if per_row:
         pos = cache["pos"].index_put((rows, slot), t_b.to(torch.int32))
         tt = t_b[:, None]                                   # (B,1)
@@ -174,6 +212,7 @@ def decode_attention(params, x, cache, t, spec: CacheSpec, rope="1d",
         pos = cache["pos"].index_put((slot[:1],), t.reshape(1).to(
             torch.int32))
         tt = t
+    new_cache["pos"] = pos
     valid = (pos >= 0) & (pos <= tt)
     if spec.window is not None:
         valid &= pos > tt - spec.window
@@ -191,4 +230,4 @@ def decode_attention(params, x, cache, t, spec: CacheSpec, rope="1d",
     out = torch.einsum("bkgt,btkh->bkgh", p, v.float())
     out = out.reshape(b, 1, kh * g, hd).to(x.dtype)
     y = attention_block_output(params, out, x.dtype)
-    return y, {"k": k, "v": v, "pos": pos}
+    return y, new_cache

@@ -2,11 +2,14 @@
 
 Ported kinds: ``mamba`` (falcon-mamba's standalone Mamba-1 block),
 recurrentgemma's ``rec`` (RG-LRU + MLP) and ``attn_local`` (sliding-window
-attention + MLP), and the dense family's ``attn`` (full causal attention +
-MLP: ``swa_attention`` with a window of S, a cache of the spec's full
-capacity, or its window where the spec sets one).  The other kinds of the
-JAX package raise ``NotImplementedError`` naming the ROADMAP item that
-brings them, as do the MoE FFN and int8 caches.
+attention + MLP), and the decoder-only families' ``attn`` (full causal
+attention + FFN: ``swa_attention`` with a window of S, a cache of the
+spec's full capacity, or its window where the spec sets one).  The FFN
+of an attention block is the dense MLP or, for a config with experts,
+the MoE layer, whose auxiliary loss the block returns.  A spec with
+``quant`` makes the ``attn`` caches int8 (``quantize_kv``).  The enc-dec
+kinds ``attn_bidir`` and ``attn_cross`` raise ``NotImplementedError``
+naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -15,15 +18,16 @@ import torch
 from ..configs.base import ArchConfig
 from .attention import (CacheSpec, _project_qkv, apply_rope,
                         attention_block_output, decode_attention,
-                        flash_attention, init_attention, init_kv_cache)
+                        flash_attention, init_attention, init_kv_cache,
+                        quantize_kv)
 from .common import rms_norm
-from .mlp import apply_mlp, init_mlp
+from .mlp import apply_mlp, apply_moe, init_mlp, init_moe
 from .recurrent import (apply_mamba, apply_rglru, init_mamba,
                         init_mamba_state, init_rglru, init_rglru_state)
 
 TODO = {
-    "attn_bidir": "ROADMAP A7(d): the enc-dec family",
-    "attn_cross": "ROADMAP A7(d): the enc-dec family",
+    "attn_bidir": "ROADMAP A7(d)(iv): the enc-dec family",
+    "attn_cross": "ROADMAP A7(d)(iv): the enc-dec family",
 }
 
 
@@ -39,8 +43,9 @@ def _unported(kind: str):
 # ---------------------------------------------------------------------------
 def _init_ffn(gen, cfg: ArchConfig, device, dtype):
     if cfg.num_experts:
-        raise NotImplementedError("the MoE FFN is not ported yet: ROADMAP "
-                                  "A7(d), the MoE family")
+        return {"moe": init_moe(gen, cfg.d_model, cfg.d_ff, cfg.num_experts,
+                                shared_expert=cfg.shared_expert,
+                                device=device, dtype=dtype)}
     return {"mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, device, dtype)}
 
 
@@ -83,9 +88,12 @@ def init_block(gen, cfg: ArchConfig, kind: str, device="cuda",
 # ffn and self-attention
 # ---------------------------------------------------------------------------
 def _apply_ffn(params, x, cfg: ArchConfig):
+    """(y, aux): the MoE layer's output and router loss, or the MLP's
+    output and 0."""
     if "moe" in params:
-        raise NotImplementedError("the MoE FFN is not ported yet: ROADMAP "
-                                  "A7(d), the MoE family")
+        return apply_moe(params["moe"], x, cfg.num_experts,
+                         cfg.experts_per_tok, cfg.moe_mode,
+                         cfg.capacity_factor)
     return apply_mlp(params["mlp"], x), 0.0
 
 
@@ -163,10 +171,9 @@ def prefill_block(params, x, kind: str, cfg: ArchConfig, ctx: dict):
 def _cache_from_kv(k, v, spec: CacheSpec):
     """A ring-buffer cache holding the last ``capacity`` positions of a
     prefilled sequence, laid out so that slot = pos % capacity; K and V
-    in bfloat16 whatever the model's type, as in the JAX package."""
-    if spec.quant:
-        raise NotImplementedError("the int8 KV cache is not ported yet: "
-                                  "ROADMAP A7(d)")
+    in bfloat16 whatever the model's type, as in the JAX package, or
+    int8 with their scales when the spec quantizes (from K and V in the
+    model's type, as the JAX package quantizes them)."""
     b, s, kh, hd = k.shape
     cap = spec.capacity
     dev = k.device
@@ -184,6 +191,9 @@ def _cache_from_kv(k, v, spec: CacheSpec):
         vc = torch.roll(v[:, tail:], shifts=tail % cap, dims=1)
         pos = torch.roll(torch.arange(tail, s, dtype=torch.int32,
                                       device=dev), shifts=tail % cap)
+    if spec.quant:
+        (k8, ks), (v8, vs) = quantize_kv(kc), quantize_kv(vc)
+        return {"k": k8, "v": v8, "k_scale": ks, "v_scale": vs, "pos": pos}
     return {"k": kc.to(torch.bfloat16), "v": vc.to(torch.bfloat16),
             "pos": pos}
 

@@ -7,11 +7,16 @@ explicit ``torch.Generator`` on an explicit device; the numbers differ
 from ``jax.random``'s, so the parity tests carry the JAX package's
 weights across (``convert.lm_params_from_numpy``).
 
+RoPE comes in the JAX package's three variants: ``rope_1d``,
+chatglm's ``rope_2d_partial`` (the first half of each head rotates) and
+qwen2-vl's ``rope_mrope`` (the frequency bands split into temporal,
+height and width sections, each rotated by its own row of (3, B, S)
+positions).  Every rotation is float32, cast back to x's type.
+
 Not ported: the logical-axis rules and the mesh (``with_logical_constraint``
-and friends: ROADMAP A8), the ``kernel_dispatch`` switch (each kernel's
-wrapper picks the CUDA kernel or the plain version by the device of its
-tensors), and the 2-D and M-RoPE variants (their families, A7(d)),
-which raise.
+and friends: ROADMAP A8) and the ``kernel_dispatch`` switch (each
+kernel's wrapper picks the CUDA kernel or the plain version by the device
+of its tensors).
 """
 from __future__ import annotations
 
@@ -25,7 +30,9 @@ def dense_init(gen, shape, in_axes=(0,), dtype=torch.float32,
     """Normal(0, 1/fan_in) in float32, cast to ``dtype``."""
     fan_in = math.prod(shape[a] for a in in_axes)
     w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (w * math.sqrt(1.0 / fan_in)).to(dtype)
+    # in place: one float32 copy of the leaf at a time (llama4-scout's
+    # expert leaves are 2.7 GB each in float32)
+    return w.mul_(math.sqrt(1.0 / fan_in)).to(dtype)
 
 
 def embed_init(gen, shape, dtype=torch.float32, device="cuda"):
@@ -99,11 +106,40 @@ def rope_1d(x, positions, theta: float = 10000.0):
     return _apply_rotary(x, angles[:, :, None, :])
 
 
-def rope_2d_partial(*args, **kwargs):
-    raise NotImplementedError("2-D partial RoPE (chatglm) is not ported "
-                              "yet: ROADMAP A7(d), the dense family")
+def rope_2d_partial(x, positions, theta: float = 10000.0):
+    """ChatGLM-style: the rotary frequencies of head_dim / 2, so only the
+    first half of each head rotates (the other half carries no
+    positional signal).  x: (B, S, H, hd); positions: (B, S) int."""
+    freqs = _rope_freqs(x.shape[-1] // 2, theta, x.device)
+    angles = positions[..., None].to(torch.float32) * freqs
+    return _apply_rotary(x, angles[:, :, None, :])
 
 
-def rope_mrope(*args, **kwargs):
-    raise NotImplementedError("M-RoPE (qwen2-vl) is not ported yet: "
-                              "ROADMAP A7(d), the VLM family")
+def rope_mrope(x, positions3, sections=(16, 24, 24), theta: float = 10000.0):
+    """Qwen2-VL M-RoPE: the rotary frequency bands are split into
+    (temporal, height, width) sections, each rotated by its own position
+    row.  x: (B, S, H, hd); positions3: (3, B, S) int.
+
+    The JAX package gathers a position row per band (``jnp.take`` on axis
+    0) and multiplies by the frequencies; here each section's row
+    multiplies its slice of the frequencies, the same float32 products."""
+    d2 = x.shape[-1] // 2
+    assert sum(sections) == d2, (sections, d2)
+    freqs = _rope_freqs(x.shape[-1], theta, x.device)       # (d2,)
+    pos = positions3.to(torch.float32)                      # (3,B,S)
+    parts, lo = [], 0
+    for i, s in enumerate(sections):
+        parts.append(pos[i][..., None] * freqs[lo:lo + s])
+        lo += s
+    angles = torch.cat(parts, dim=-1)                       # (B,S,d2)
+    return _apply_rotary(x, angles[:, :, None, :])
+
+
+def default_mrope_sections(head_dim: int) -> tuple[int, int, int]:
+    """(temporal, height, width) band counts: a quarter of the d2 bands
+    temporal, the rest split in two (the odd one to width)."""
+    d2 = head_dim // 2
+    t = d2 // 4
+    rest = d2 - t
+    h = rest // 2
+    return (t, h, rest - h)

@@ -22,8 +22,15 @@ in float32 and cast to ``dtype`` as it is written, so a 7B model
 initialises in the serve type without a float32 copy of the whole
 (falcon-mamba-7b's stacked ``in_proj`` is 17 GB in float32).
 
-Not ported yet: the encoder, the modality prefix and M-RoPE positions
-(A7(d)).
+A batch may carry a modality prefix, ``embeds`` (B, P, d), which goes in
+front of the token embeddings (qwen2-vl's vision stub), and ``positions``,
+(3, B, S) for M-RoPE; S counts the prefix, and ``lm_loss`` scores only
+the token positions.  The MoE layers' router loss sums over the layers
+into ``forward``'s aux (each checkpointed unit repeat returns its own
+part).
+
+Not ported yet: the encoder (``init_lm`` raises for an enc-dec config,
+ROADMAP A7(d)(iv)).
 """
 from __future__ import annotations
 
@@ -43,8 +50,8 @@ from .common import dense_init, embed_init, rms_norm, softmax_xent_logits
 # ---------------------------------------------------------------------------
 def init_lm(gen, cfg: ArchConfig, device="cuda", dtype=torch.float32):
     if cfg.is_encdec:
-        raise NotImplementedError("the enc-dec family is not ported yet "
-                                  "(ROADMAP A7)")
+        raise NotImplementedError("the enc-dec family is not ported yet: "
+                                  "ROADMAP A7(d)(iv)")
     return {
         "embed": embed_init(gen, (cfg.vocab_size, cfg.d_model), dtype,
                             device),
@@ -96,18 +103,33 @@ def _stack(trees):
 # helpers
 # ---------------------------------------------------------------------------
 def _default_positions(cfg: ArchConfig, b, s, offset=0, device=None):
-    """(B,S) positions offset..offset+S-1 (M-RoPE's (3,B,S) waits for the
-    VLM family, A7(d))."""
-    if cfg.rope == "mrope":
-        raise NotImplementedError("M-RoPE positions are not ported yet: "
-                                  "ROADMAP A7(d), the VLM family")
+    """(B,S) positions offset..offset+S-1, the same (3,B,S) on each row
+    for M-RoPE."""
     pos = torch.arange(s, dtype=torch.int32, device=device)[None, :] + offset
-    return pos.expand(b, s)
+    pos = pos.expand(b, s)
+    if cfg.rope == "mrope":
+        return pos[None].expand(3, b, s)
+    return pos
 
 
-def _embed_tokens(params, tokens, dtype):
-    emb = params["embed"].to(dtype)
-    return emb[torch.clamp_min(tokens, 0).long()]
+def _embed_tokens(params, tokens, dtype, extra_embeds=None):
+    """Token embeddings in ``dtype``, after the modality prefix
+    ``extra_embeds`` (B,P,d) when there is one."""
+    x = params["embed"].to(dtype)[torch.clamp_min(tokens, 0).long()]
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(dtype), x], dim=1)
+    return x
+
+
+def _inputs(params, cfg: ArchConfig, batch, dtype):
+    """(x, positions): the embedded batch (prefix first) and its
+    positions, the default ones over the whole length unless given."""
+    x = _embed_tokens(params, batch["tokens"], dtype, batch.get("embeds"))
+    positions = batch.get("positions")
+    if positions is None:
+        positions = _default_positions(cfg, x.shape[0], x.shape[1],
+                                       device=x.device)
+    return x, positions
 
 
 def _unit_loop(params_unit, x, cfg: ArchConfig, ctx, collect_cache=False,
@@ -163,14 +185,11 @@ def _unit_loop(params_unit, x, cfg: ArchConfig, ctx, collect_cache=False,
 # ---------------------------------------------------------------------------
 def forward(params, cfg: ArchConfig, batch, dtype=torch.bfloat16):
     """Full forward -> (logits (B,S,V), aux_loss).  batch: {"tokens"
-    (B,S) int}, optional "positions" (B,S) and "segments" (packed
-    sequences, which attention refuses until A7(e)).  Each unit repeat
-    is checkpointed when autograd records."""
-    tokens = batch["tokens"]
-    x = _embed_tokens(params, tokens, dtype)
-    positions = batch.get("positions")
-    if positions is None:
-        positions = _default_positions(cfg, *tokens.shape, device=x.device)
+    (B,S_tok) int}, optional "embeds" (B,P,d) modality prefix (S = P +
+    S_tok), "positions" ((B,S), or (3,B,S) for M-RoPE) and "segments"
+    (packed sequences, which attention refuses until A7(e)).  Each unit
+    repeat is checkpointed when autograd records."""
+    x, positions = _inputs(params, cfg, batch, dtype)
     ctx = {"positions": positions, "segments": batch.get("segments")}
     aux = 0.0
     for p, kind in zip(params["prologue"], cfg.pattern_prologue):
@@ -184,13 +203,15 @@ def forward(params, cfg: ArchConfig, batch, dtype=torch.bfloat16):
 
 def lm_loss(params, cfg: ArchConfig, batch, aux_weight: float = 0.01,
             dtype=torch.bfloat16):
-    """Next-token loss: the cross entropy of each position's logits
-    against the next token (the last position's label is -1, ignored),
-    in float32, plus ``aux_weight`` times the blocks' auxiliary loss (0
-    for every ported kind).  An optional "loss_mask" (B,S) zeroes
+    """Next-token loss: the cross entropy of each token position's logits
+    (the modality prefix's are left out) against the next token (the
+    last position's label is -1, ignored), in float32, plus
+    ``aux_weight`` times the blocks' auxiliary loss (the MoE router
+    loss; 0 for the other kinds).  An optional "loss_mask" (B,S) zeroes
     targets, as in the JAX package."""
     logits, aux = forward(params, cfg, batch, dtype)
     tokens = batch["tokens"]
+    logits = logits[:, logits.shape[1] - tokens.shape[1]:]
     labels = torch.cat([tokens[:, 1:].to(torch.int32),
                         torch.full((tokens.shape[0], 1), -1,
                                    dtype=torch.int32,
@@ -204,13 +225,10 @@ def lm_loss(params, cfg: ArchConfig, batch, aux_weight: float = 0.01,
 # ---------------------------------------------------------------------------
 def prefill(params, cfg: ArchConfig, batch, spec: CacheSpec,
             dtype=torch.bfloat16):
-    """Prefill the cache from a full prompt; returns (last_logits (B,1,V),
-    cache)."""
-    tokens = batch["tokens"]
-    x = _embed_tokens(params, tokens, dtype)
-    positions = batch.get("positions")
-    if positions is None:
-        positions = _default_positions(cfg, *tokens.shape, device=x.device)
+    """Prefill the cache from a full prompt (after its modality prefix,
+    when the batch has one); returns (last_logits (B,1,V), cache), the
+    cache's step ``t`` the prompt's whole length."""
+    x, positions = _inputs(params, cfg, batch, dtype)
     ctx = {"positions": positions, "spec": spec}
     caches = {"prologue": [], "unit": None}
     for p, kind in zip(params["prologue"], cfg.pattern_prologue):
@@ -249,11 +267,13 @@ def decode_step(params, cfg: ArchConfig, token, cache, spec: CacheSpec,
 
     ``cache["t"]`` is the step, a scalar for the whole batch or one per
     row, shape (B,) (the Engine's slots); each row takes its RoPE
-    position from its own step."""
+    position from its own step ((3,B,1) for M-RoPE)."""
     b = token.shape[0]
     t = cache["t"]
     x = _embed_tokens(params, token, dtype)
     positions = (t if t.dim() == 1 else t.expand(b))[:, None]
+    if cfg.rope == "mrope":
+        positions = positions[None].expand(3, b, 1)
     ctx = {"positions": positions, "t": t, "spec": spec}
     new_cache = {"prologue": [], "t": t + 1}
     for p, kind, c in zip(params["prologue"], cfg.pattern_prologue,

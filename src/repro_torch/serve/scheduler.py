@@ -24,7 +24,16 @@ capacity) (stacked: (repeats, slots, capacity)); ``decode_attention``
 then writes, masks and rotates each row at its own step.  A prefilled
 request's cache is written into its slot in place: the leaves that
 carry the batch take their one row, ``pos`` (which has no batch axis in
-a one-sequence cache) its whole row.
+a one-sequence cache) its whole row.  An int8 cache's ``k_scale`` and
+``v_scale`` take their slot like every other leaf.
+
+Every decoder-only family serves here.  A MoE config's prefill groups
+and capacity follow each bucket's length (``mlp.moe_capacity``); its
+decode routes each slot's token alone (a group of one, as the JAX
+engine's ``vmap`` over slots does).  An M-RoPE config (qwen2-vl) prefills
+with the default (3, 1, bucket) positions and no vision prefix, as the
+JAX engine does, and decodes each slot at (3, slots, 1) positions from
+its own step.
 """
 from __future__ import annotations
 

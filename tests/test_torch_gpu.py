@@ -14,7 +14,10 @@ multiple of 8); ``send_view`` is held bit for bit at N=1 and to 1e-5
 with rate weights, and reads a strided row range of its slab in place
 (bit for bit the same call on a contiguous copy); ``rglru_scan`` bit for bit at every staging edge and
 at decode; ``gap_update`` bit for bit on relaunch and to GAP_TOL at k =
-1, 2 and 8, with repeated workers adjacent and apart.
+1, 2 and 8, with repeated workers adjacent and apart; ``swa_attention``
+at the sliding-window and small cases and at the full causal prefill
+shapes of chatglm3-6b, granite-moe-3b-a800m, llama4-scout-17b-a16e and
+qwen2-vl-7b.
 """
 import numpy as np
 import pytest
@@ -471,7 +474,13 @@ SWA_CASES = [(1, 256, 2, 2, 64, 64), (1, 256, 2, 2, 64, 128),
              # recurrentgemma-9b's prefill; a window no kv tile divides;
              # hd 20, no multiple of 8 (the kernels' scalar copy loops)
              (4, 512, 16, 1, 256, 2048), (1, 600, 4, 1, 128, 100),
-             (2, 70, 2, 1, 20, 16)]
+             (2, 70, 2, 1, 20, 16),
+             # the decoder-only families' prefills, full causal (window =
+             # S): chatglm3-6b (a GQA group of 16), granite-moe-3b-a800m
+             # (hd 64), llama4-scout-17b-a16e (40 heads), qwen2-vl-7b (its
+             # 256-position vision prefix and a 512-token prompt)
+             (4, 512, 32, 2, 128, 512), (4, 512, 24, 8, 64, 512),
+             (4, 512, 40, 8, 128, 512), (4, 768, 28, 4, 128, 768)]
 
 
 @pytest.mark.parametrize("b,s,h,kh,hd,window", SWA_CASES)

@@ -174,7 +174,11 @@ def test_rglru_raises_naming_its_roadmap_items():
     """The RG-LRU stubs that raised naming A7 and B6 are gone (the block
     is ported; its parity tests are in test_torch_recurrentgemma.py): the
     three functions run and keep the JAX package's shapes and types.
-    What stays unported beside them still raises naming its item."""
+    What stays unported beside them still raises naming its item: the
+    enc-dec family's non-causal and cross attention (A7(d)(iv)) and
+    packed segments (A7(e)); the RoPE variants and the MoE layer, which
+    raised here until they were ported, run (their parity tests are in
+    test_torch_rope_variants.py and test_torch_moe.py)."""
     gen = torch.Generator().manual_seed(0)
     p = init_rglru(gen, 32, 64, 4, device="cpu")
     assert p["w_a"].shape == (4, 16, 16) and p["lam"].shape == (64,)
@@ -182,20 +186,47 @@ def test_rglru_raises_naming_its_roadmap_items():
     assert st["conv"].shape == (2, 3, 64) and st["h"].dtype == torch.float32
     y, st2 = apply_rglru(p, torch.zeros((2, 5, 32)), state=st)
     assert y.shape == (2, 5, 32) and st2["h"].shape == (2, 64)
+    from repro_torch.models.attention import cross_attention, flash_attention
     from repro_torch.models.common import rope_2d_partial, rope_mrope
     from repro_torch.models.mlp import apply_moe, init_moe
-    for fn in (rope_2d_partial, rope_mrope, init_moe, apply_moe):
-        with pytest.raises(NotImplementedError, match="A7"):
-            fn()
+    q = torch.zeros((1, 4, 2, 8))
+    with pytest.raises(NotImplementedError, match=r"A7\(d\)\(iv\)"):
+        flash_attention(q, q, q, causal=False)
+    with pytest.raises(NotImplementedError, match=r"A7\(d\)\(iv\)"):
+        cross_attention(q, q, q)
+    with pytest.raises(NotImplementedError, match=r"A7\(e\)"):
+        flash_attention(q, q, q, segments=torch.ones((1, 4)))
+    pos = torch.zeros((1, 4), dtype=torch.int32)
+    assert rope_2d_partial(q, pos).shape == q.shape
+    assert rope_mrope(q, pos[None].expand(3, 1, 4), (1, 1, 2)).shape == \
+        q.shape
+    moe = init_moe(gen, 8, 16, 4, device="cpu")
+    out, aux = apply_moe(moe, torch.zeros((1, 4, 8)), 4, 2)
+    assert out.shape == (1, 4, 8) and float(aux) > 0
 
 
 def test_unported_families_raise():
+    """Of the ten configs only the enc-dec one (seamless-m4t-large-v2)
+    still raises, naming A7(d)(iv): its ``init_lm``, its ``make_batch``
+    (the encoder input) and its block kinds.  granite-moe and qwen2-vl,
+    which raised here before they were ported, build and make their
+    batches."""
     gen = torch.Generator().manual_seed(0)
-    for name in ("granite-moe-3b-a800m", "seamless-m4t-large-v2"):
-        with pytest.raises(NotImplementedError, match="A7"):
-            lm.init_lm(gen, get_config(name).reduced(), "cpu")
-    with pytest.raises(NotImplementedError, match="A7"):
-        build_model(get_config("qwen2-vl-7b").reduced()).make_batch(8, 1)
+    seamless = get_config("seamless-m4t-large-v2").reduced()
+    with pytest.raises(NotImplementedError, match=r"A7\(d\)\(iv\)"):
+        lm.init_lm(gen, seamless, "cpu")
+    with pytest.raises(NotImplementedError, match=r"A7\(d\)\(iv\)"):
+        build_model(seamless).make_batch(8, 1, device="cpu")
+    from repro_torch.models.blocks import init_block
+    for kind in ("attn_bidir", "attn_cross"):
+        with pytest.raises(NotImplementedError, match=r"A7\(d\)\(iv\)"):
+            init_block(gen, seamless, kind, "cpu")
+    p = lm.init_lm(gen, get_config("granite-moe-3b-a800m").reduced(), "cpu")
+    assert p["unit"][0]["moe"]["w_gate"].shape == (1, 4, 256, 512)
+    b = build_model(get_config("qwen2-vl-7b").reduced()).make_batch(
+        16, 1, device="cpu")
+    assert b["embeds"].shape == (1, 8, 256)
+    assert b["positions"].shape == (3, 1, 16)
 
 
 # ---------------------------------------------------------------------------
