@@ -374,6 +374,12 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 512, 32
 # against forward (tests/test_models_smoke.py), and the top-2 margin above
 # which two bf16 paths must pick the same token
 SERVE_TOL = dict(rtol=0.15, atol=0.15)
+# qwen2-vl's bf16 KV cache puts a few logits past SERVE_TOL (C31; PR 22
+# readings 0.038 RMS, 4 of 608,256 past): its bf16 check bounds the gap's
+# RMS and that count, and its float32 run holds a float32 bound (reading
+# 0.055)
+SERVE_BF16_GAP = dict(rms=0.06, past=32)
+SERVE_F32_TOL = dict(rtol=0.0, atol=0.1)
 ENGINE_REQUESTS, ENGINE_SLOTS, ENGINE_CAPACITY = 8, 4, 512
 # dense bf16 tensor-core rate by SKU (NVIDIA data sheets), the peak that
 # bounds attention's products on bf16 inputs
@@ -1114,8 +1120,11 @@ def run_cluster_once(conf, workers=WORKERS, **kw):
                        stats_out=stats)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    return (hist, stats, launches(), secs,
-            torch.cuda.max_memory_allocated())
+    peak = torch.cuda.max_memory_allocated()
+    # cuBLAS keeps a workspace for each thread that ran a product after
+    # the thread ends: 64 worker threads leave 2.18 GB allocated
+    torch._C._cuda_clearCublasWorkspaces()
+    return hist, stats, launches(), secs, peak
 
 
 def cluster_record(phase, hist, stats, counts, secs, peak):
@@ -2333,11 +2342,11 @@ def check_counts(phase, counts, expect):
                                  f"times, expected {n}")
 
 
-def decode_vs_forward(model, params, prompts, tok=None):
+def decode_vs_forward(model, params, prompts):
     """Prefill ``prompts`` (after the vision prefix of a vision config, in
-    a cache that holds both), decode ``tok`` (default: the greedy token),
-    and forward over prompt + token: (prefill logits, step logits (B,V),
-    forward's last logits (B,V), the cache), the last two in float32."""
+    a cache that holds both), decode the greedy token, and forward over
+    prompt + token: (prefill logits, step logits (B,V), forward's last
+    logits (B,V), the cache), the last two in float32."""
     from repro_torch.launch.serve import serve_batch
     from repro_torch.models.attention import CacheSpec
     cfg = model.cfg
@@ -2345,8 +2354,7 @@ def decode_vs_forward(model, params, prompts, tok=None):
     spec = CacheSpec(first["tokens"].shape[1] + (
         first["embeds"].shape[1] if "embeds" in first else 0) + 1, None)
     logits, cache = model.prefill(params, first, spec)
-    if tok is None:
-        tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+    tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
     step, cache = model.decode_step(params, tok, cache, spec)
     full, _ = model.forward(params, serve_batch(cfg, torch.cat([prompts, tok],
                                                                1)))
@@ -2373,10 +2381,10 @@ def generate_phase(model, params, info, phase, batch, prompt, gen, expect,
     (the same parameters, another config: the MoE configs at a capacity
     where nothing drops) runs the check in place of ``model``;
     ``generate``'s first tokens are held against ``model``'s own prefill.
-    With ``check_f32`` the check that must hold runs on float32
-    parameters drawn from the same seed (the bf16 gap is recorded): the
+    With ``check_f32`` the bf16 gap is held to ``SERVE_BF16_GAP`` (the
     bf16 KV cache's rounding alone (C6) puts a few of qwen2-vl's bf16
-    logits past the bf16 bound (C31)."""
+    logits past SERVE_TOL, C31) and the same check on float32 parameters
+    drawn from the same seed to ``SERVE_F32_TOL``."""
     from repro_torch.kernels import launches, reset_launches
     from repro_torch.launch.serve import generate, serve_batch
     from repro_torch.models.api import build_model
@@ -2433,7 +2441,8 @@ def generate_phase(model, params, info, phase, batch, prompt, gen, expect,
         _, step, full, _ = decode_vs_forward(m32, p32, prompts)
         del m32, p32
         torch.cuda.empty_cache()
-        rec.update(gap_stats(step, full, "f32_"), check_dtype="float32")
+        rec.update(gap_stats(step, full, "f32_"), bf16_gap=SERVE_BF16_GAP,
+                   f32_tolerance=SERVE_F32_TOL)
         finite = finite and bool(torch.isfinite(step).all()
                                  and torch.isfinite(full).all())
     rec["seconds"] = time.perf_counter() - t_phase
@@ -2444,8 +2453,18 @@ def generate_phase(model, params, info, phase, batch, prompt, gen, expect,
                              f"logits")
     if not first_equal:
         raise AssertionError(f"{phase}: prefill differs from generate")
-    max_err(step, full, SERVE_TOL, f"{phase} decode vs forward"
-            + (" (float32)" if check_f32 else ""))
+    if not check_f32:
+        max_err(step, full, SERVE_TOL, f"{phase} decode vs forward")
+        return rec
+    if (rec["decode_vs_forward_rms_err"] > SERVE_BF16_GAP["rms"]
+            or rec["decode_vs_forward_past_tolerance"]
+            > SERVE_BF16_GAP["past"]):
+        raise AssertionError(
+            f"{phase}: bf16 decode vs forward RMS "
+            f"{rec['decode_vs_forward_rms_err']}, "
+            f"{rec['decode_vs_forward_past_tolerance']} logits past "
+            f"SERVE_TOL; bounds {SERVE_BF16_GAP}")
+    max_err(step, full, SERVE_F32_TOL, f"{phase} decode vs forward (float32)")
     return rec
 
 
@@ -3407,9 +3426,7 @@ def main():
     sf = phase_swa_families(card)
     phase_lm_grad()
     # first of the model phases: llama4-scout's 14 layers (65.8 GB, and
-    # a layer's draw beside them) need the card as a fresh process has
-    # it; after the cluster and serve phases the same draw ran out of
-    # memory
+    # a layer's draw beside them) need the card as a fresh process has it
     families = {}
     phase_families(families)
     conf = configuration()

@@ -6,19 +6,20 @@ config's full width on one GPU.
         [--batch 4] [--prompt 512]
 
 For each config (drawn as ``chip_smoke.py``'s serve phases draw it: full
-width and depth, weights from a seed), the check of ``chip_smoke.py``'s
-``generate_phase``: prefill the prompts (after the zero vision prefix
-of a vision config, with its M-RoPE positions), decode the greedy token,
-and hold the step's logits against forward over prompt + token.  It
-runs the check in bf16 (the serve type), in bf16 without the vision
-prefix (tokens alone, default positions), and with float32 parameters
-and activations (the KV cache stays bf16, as in the JAX package), and
-prints one JSON line a run: the largest gap, its RMS, the logit there,
-and how many logits lie past ``chip_smoke.SERVE_TOL`` (atol + rtol x
-|forward|).  The MoE configs run at capacity E / top_k, where nothing
-drops.  Exits 2 without a CUDA device.
+width and depth, weights from a seed), ``chip_smoke.decode_vs_forward``
+and ``gap_stats``, the check of its ``generate_phase``: prefill the
+prompts (after the zero vision prefix of a vision config, with its
+M-RoPE positions), decode the greedy token, and hold the step's logits
+against forward over prompt + token.  It runs the check in bf16 (the
+serve type), in bf16 without the vision prefix (tokens alone, positions
+from 0), and with float32 parameters and activations (the KV cache
+stays bf16, as in the JAX package), and prints one JSON line a run: the
+largest gap, its RMS and how many logits lie past
+``chip_smoke.SERVE_TOL``.  The MoE configs run at capacity E / top_k,
+where nothing drops.  Exits 2 without a CUDA device.
 """
 import argparse
+import dataclasses
 import json
 import sys
 from pathlib import Path
@@ -28,36 +29,6 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import chip_smoke  # noqa: E402  (puts src/ on the path)
-
-
-def gap(model, params, batch):
-    """Stats of |decode step - forward| over the last position's logits."""
-    from repro_torch.launch.serve import serve_batch
-    from repro_torch.models.attention import CacheSpec
-    prefix = batch["embeds"].shape[1] if "embeds" in batch else 0
-    spec = CacheSpec(batch["tokens"].shape[1] + prefix + 1, None)
-    with torch.no_grad():
-        logits, cache = model.prefill(params, batch, spec)
-        tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
-        step, _ = model.decode_step(params, tok, cache, spec)
-        del cache
-        full_batch = serve_batch(model.cfg, torch.cat([batch["tokens"], tok],
-                                                      1))
-        if not prefix:
-            full_batch.pop("embeds", None)
-            full_batch.pop("positions", None)
-        full, _ = model.forward(params, full_batch)
-    step, full = step[:, 0].float(), full[:, -1].float()
-    d = (step - full).abs()
-    tol = chip_smoke.SERVE_TOL
-    at = int(torch.argmax(d))
-    return {"max_abs_err": float(d.max()),
-            "rms_err": float(torch.sqrt(torch.mean(d * d))),
-            "logit_at_max": float(full.reshape(-1)[at]),
-            "logit_rms": float(torch.sqrt(torch.mean(full * full))),
-            "past_tolerance": int((d > tol["atol"] + tol["rtol"]
-                                   * full.abs()).sum()),
-            "logits": d.numel(), "tolerance": tol}
 
 
 def main(argv=None):
@@ -71,9 +42,7 @@ def main(argv=None):
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    import dataclasses
     from repro_torch.configs import get_config
-    from repro_torch.launch.serve import serve_batch
     from repro_torch.models.api import build_model
     for arch in args.arch or [chip_smoke.VL_ARCH]:
         cfg = get_config(arch)
@@ -85,17 +54,24 @@ def main(argv=None):
             model = build_model(cfg, dtype)
             params = model.init(torch.Generator(device="cuda").manual_seed(0),
                                 device="cuda", dtype=dtype)
-            runs = [("prefix", serve_batch(cfg, prompts))]
+            runs = [("prefix", model)]
             if cfg.modality == "vision" and dtype == torch.bfloat16:
-                runs.append(("no_prefix", {"tokens": prompts}))
-            for label, batch in runs:
+                runs.append(("no_prefix", build_model(
+                    dataclasses.replace(cfg, modality=None), dtype)))
+            for label, m in runs:
+                with torch.no_grad():
+                    _, step, full, _ = chip_smoke.decode_vs_forward(
+                        m, params, prompts)
                 print(json.dumps({
                     "phase": "serve_gap", "arch": arch,
                     "dtype": str(dtype).replace("torch.", ""),
                     "inputs": label, "batch": args.batch,
-                    "prompt": args.prompt, **gap(model, params, batch),
+                    "prompt": args.prompt, "logits": step.numel(),
+                    **chip_smoke.gap_stats(step, full),
+                    "logit_rms": float(torch.sqrt(torch.mean(full * full))),
+                    "tolerance": chip_smoke.SERVE_TOL,
                     "nvidia_smi": chip_smoke.nvidia_smi()}), flush=True)
-            del model, params
+            del model, params, runs
             torch.cuda.empty_cache()
     return 0
 
