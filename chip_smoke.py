@@ -26,7 +26,13 @@ qwen2-vl-7b (M-RoPE after a 256-position vision prefix) at full depth,
 granite-moe-3b-a800m (40 experts top-8) at full depth, llama4-scout-
 17b-a16e (16 experts top-1 and a shared expert) with its depth cut to 14
 of 48 layers, chatglm3's int8 KV cache, and granite-moe trained with its
-depth cut; every attention prefill through ``swa_attention``.
+depth cut; the enc-dec family, seamless-m4t-large-v2 (24 encoder and 24
+decoder layers, d_model 1024, vocab 256,206, 2.03B parameters), served
+and trained at full width and depth (its encoder's non-causal attention
+and the decoder's cross attention through ``swa_attention``), and
+qwen2-1.5b trained on packed documents (attention confined to each
+document by ``swa_attention``'s segment mask); every attention prefill
+through ``swa_attention``.
 Full width: the MLP
 classifier [2048, 4096, 4096, 10] has 25,214,986 parameters, the size
 of the paper's ImageNet ResNet-50 master state, and 64 workers (the
@@ -288,13 +294,45 @@ Phases (one JSON line each):
               32 layers, 2 pods, batch 8 x 512, 3 steps: finite losses
               with the router loss, v0 == sum_p v_p, 2 swa_attention a
               layer a pod a step
+  swa_attention_masks
+              swa_attention at the enc-dec family's and packed
+              sequences' shapes: seamless-m4t-large-v2's encoder and
+              cross attention (4, 512, 16, 16, 64), non-causal over T =
+              512 keys, a ragged T = 1000 and the longest encoder output
+              (1, 512, ..., T = 4096); qwen2-1.5b (4, 512, 12, 2, 128)
+              causal with a PackedLMTask batch's segments, padding rows
+              included (each the mean of V over every key); bf16 and f32
+              against the plain version, the bf16 call timed beside SDPA
+              (is_causal=False; with segments a boolean causal-and-
+              segment mask) with device times and the bound
+  lm_grad     (also) seamless reduced with its encoder in float32 on both
+              sides (held to 1e-4) and in bfloat16 as it runs (recorded:
+              the card's tensor-core encoder and the CPU's plain one
+              round apart), and qwen2 reduced on a packed batch
+  serve_generate_seamless
+              seamless-m4t-large-v2 at full width and depth in bf16
+              (4.07 GB): generate (batch 4, prompt 512, zero frames of
+              512, 32 tokens): 72 swa_attention in the prefill (24
+              encoder, 24 self, 24 cross layers), none in decode; prefill
+              + one decode step against forward on random frames (0.15)
+  train_seamless
+              launch.train.main on seamless at full width and depth, 2
+              pods, batch 8 x 512 (frames from the CLI's stream), 3 steps,
+              no checkpoint: finite losses, v0 == sum_p v_p bit for bit,
+              864 swa_attention launches
+  packed_qwen2
+              qwen2-1.5b at full width and depth on a PackedLMTask batch
+              (8 x 512): one pod's loss and gradient, 2 pod-round steps
+              (finite, v0 == sum_p v_p), and a row's second document's
+              logits against the document alone (float32 within 3e-2,
+              JAX tests/test_packing.py's tolerance; bf16 recorded)
 Every path runs with the launch counts set to 0 just before it and read
 just after; a path that did not launch its kernels fails (a process
 backend's children count in their own processes and ship their counts
-back; the parent sums them).  The last
-lines: the kernel table as JSON, the card's name and power limit, and
-{"ok": true, "device": {...}}.  Any failed check raises and the script
-exits non-zero; without a CUDA device it exits 2 at once.
+back; the parent sums them).  The last lines: the run's seconds, the
+kernel table as JSON, the card's name and power limit, and {"ok": true,
+"device": {...}}.  Any failed check raises and the script exits
+non-zero; without a CUDA device it exits 2 at once.
 """
 import json
 import os
@@ -2227,32 +2265,55 @@ def lm_grads(model, params0, batch, w, device):
     return [l.grad for l in tree_leaves(params)], logits.detach()
 
 
-def phase_lm_grad():
-    """Each reduced model in float32: parameters drawn once on the CPU
-    from a seeded generator, the batch (``make_batch``: tokens, and the
-    vision prefix and M-RoPE positions where the config takes them) and
-    W from numpy; the card's forward and backward of sum(logits * W) +
-    aux with the launch counts set to 0 just before, then the CPU's.
-    Every leaf's gradient must be finite and within LM_GRAD_TOL
-    (relative L2) of the CPU's; each kernel launched once a prologue
-    layer and twice a unit layer (the forward checkpoints each unit
-    repeat: the forward and the backward's recompute)."""
+# the enc-dec family and packed sequences: seamless reduced with its
+# encoder in float32 on both sides (held to LM_GRAD_TOL) and in bfloat16
+# as the model runs it (recorded, not held: the card's tensor-core
+# encoder and the CPU's plain bfloat16 one round apart, as two bfloat16
+# encoders do in tests/test_torch_encdec.py); qwen2 reduced on a
+# PackedLMTask batch (segments with padding rows, restarting positions)
+LM_GRAD_VARIANTS = [("seamless-m4t-large-v2-reduced", 2, 128, "f32_encoder"),
+                    ("seamless-m4t-large-v2-reduced", 2, 128, "bf16_encoder"),
+                    ("qwen2-1.5b-reduced", 2, 128, "packed")]
+
+
+def lm_grad_case(arch, batch, seq, variant=None):
+    """One reduced model in float32: parameters drawn once on the CPU
+    from a seeded generator, the batch (tokens; ``make_batch`` where the
+    config takes more: the vision prefix, M-RoPE positions, the encoder's
+    frames; a ``PackedLMTask`` batch for ``packed``) and W from numpy;
+    the card's forward and backward of sum(logits * W) + aux with the
+    launch counts set to 0 just before, then the CPU's.  Every leaf's
+    gradient must be finite and, but for the bf16 encoder, within
+    LM_GRAD_TOL (relative L2) of the CPU's; each kernel launched once a
+    prologue layer and twice a unit (and an encoder) layer (the forward
+    checkpoints each repeat: the forward and the backward's
+    recompute)."""
     from repro_torch.configs import get_config
     from repro_torch.core.types import tree_leaves
+    from repro_torch.data.packing import PackedLMTask
     from repro_torch.kernels import launches, reset_launches
+    from repro_torch.models import lm
     from repro_torch.models.api import build_model
-    for arch, (batch, seq) in LM_GRAD.items():
-        cfg = get_config(arch)
-        model = build_model(cfg, torch.float32)
-        params0 = model.init(torch.Generator().manual_seed(0), device="cpu")
-        rng = np.random.default_rng(4)
-        if cfg.modality == "text" and cfg.rope != "mrope":
-            inputs = {"tokens": torch.as_tensor(rng.integers(
-                0, cfg.vocab_size, size=(batch, seq)), dtype=torch.int32)}
-        else:
-            inputs = model.make_batch(seq, batch, seed=4, device="cpu")
-        w = torch.as_tensor(rng.standard_normal(
-            (batch, seq, cfg.vocab_size)).astype(np.float32))
+    cfg = get_config(arch)
+    model = build_model(cfg, torch.float32)
+    params0 = model.init(torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(4)
+    if variant == "packed":
+        inputs = PackedLMTask(vocab_size=cfg.vocab_size, seq_len=seq,
+                              batch_size=batch, mean_doc_len=24,
+                              seed=4).batch(0, 0).tensors("cpu")
+        del inputs["loss_mask"]
+    elif cfg.modality == "text" and cfg.rope != "mrope":
+        inputs = {"tokens": torch.as_tensor(rng.integers(
+            0, cfg.vocab_size, size=(batch, seq)), dtype=torch.int32)}
+    else:
+        inputs = model.make_batch(seq, batch, seed=4, device="cpu")
+    w = torch.as_tensor(rng.standard_normal(
+        (batch, seq, cfg.vocab_size)).astype(np.float32))
+    real_enc = lm.ENCODER_DTYPE
+    if variant == "f32_encoder":
+        lm.ENCODER_DTYPE = torch.float32
+    try:
         reset_launches()
         t0 = time.perf_counter()
         g_card, logits_card = lm_grads(model, params0, inputs, w, "cuda")
@@ -2260,29 +2321,47 @@ def phase_lm_grad():
         secs = time.perf_counter() - t0
         counts = launches()
         g_cpu, logits_cpu = lm_grads(model, params0, inputs, w, "cpu")
-        rel = []
-        for a, b in zip(g_card, g_cpu):
-            if a is None or b is None or not bool(torch.isfinite(a).all()):
-                raise AssertionError(f"lm_grad {arch}: a leaf has no finite "
-                                     f"gradient on the card")
-            rel.append(float((a.cpu() - b).norm() / b.norm()))
-        logit_rel = float((logits_card.cpu() - logits_cpu).norm()
-                          / logits_cpu.norm())
-        expected = kernel_counts(cfg, 1)
-        rec = {"phase": "lm_grad", "arch": arch, "dtype": "float32",
-               "batch": batch, "tokens": seq, "leaves": len(rel),
-               "params": sum(l.numel() for l in tree_leaves(params0)),
-               "card_seconds": secs,
-               "launches": {k: n for k, n in counts.items() if n},
-               **{f"expected_{k}_launches": n for k, n in expected.items()},
-               "logits_rel_l2": logit_rel, "grad_rel_l2_max": max(rel),
-               "grad_rel_l2_median": float(np.median(rel)),
-               "tolerance_rel_l2": LM_GRAD_TOL}
-        emit(rec)
-        check_counts(f"lm_grad {arch}", counts, expected)
-        if max(rel) > LM_GRAD_TOL:
-            raise AssertionError(f"lm_grad {arch}: a leaf's gradient is "
-                                 f"{max(rel)} (relative L2) from the CPU's")
+    finally:
+        lm.ENCODER_DTYPE = real_enc
+    rel = []
+    for a, b in zip(g_card, g_cpu):
+        if a is None or b is None or not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"lm_grad {arch}: a leaf has no finite "
+                                 f"gradient on the card")
+        rel.append(float((a.cpu() - b).norm() / b.norm()))
+    logit_rel = float((logits_card.cpu() - logits_cpu).norm()
+                      / logits_cpu.norm())
+    expected = kernel_counts(cfg, 1)
+    held = variant != "bf16_encoder"
+    rec = {"phase": "lm_grad", "arch": arch, "dtype": "float32",
+           "batch": batch, "tokens": seq, "leaves": len(rel),
+           "params": sum(l.numel() for l in tree_leaves(params0)),
+           "card_seconds": secs,
+           "launches": {k: n for k, n in counts.items() if n},
+           **{f"expected_{k}_launches": n for k, n in expected.items()},
+           "logits_rel_l2": logit_rel, "grad_rel_l2_max": max(rel),
+           "grad_rel_l2_median": float(np.median(rel)),
+           "tolerance_rel_l2": LM_GRAD_TOL if held else None}
+    if variant:
+        rec["variant"] = variant
+    if variant == "packed":
+        rec["padding_tokens"] = int((inputs["segments"] == 0).sum())
+        rec["documents"] = int(inputs["segments"].max(1).values.sum())
+    emit(rec)
+    check_counts(f"lm_grad {arch}", counts, expected)
+    if held and max(rel) > LM_GRAD_TOL:
+        raise AssertionError(f"lm_grad {arch}: a leaf's gradient is "
+                             f"{max(rel)} (relative L2) from the CPU's")
+    return rec
+
+
+def phase_lm_grad():
+    """``lm_grad_case`` on each reduced model of LM_GRAD, then on the
+    variants of LM_GRAD_VARIANTS."""
+    for arch, (batch, seq) in LM_GRAD.items():
+        lm_grad_case(arch, batch, seq)
+    return {variant: lm_grad_case(arch, batch, seq, variant)
+            for arch, batch, seq, variant in LM_GRAD_VARIANTS}
 
 
 # -- recurrentgemma-9b serving -------------------------------------------------
@@ -2342,22 +2421,29 @@ def check_counts(phase, counts, expect):
                                  f"times, expected {n}")
 
 
-def decode_vs_forward(model, params, prompts):
+def decode_vs_forward(model, params, prompts, frames=None):
     """Prefill ``prompts`` (after the vision prefix of a vision config, in
     a cache that holds both), decode the greedy token, and forward over
     prompt + token: (prefill logits, step logits (B,V), forward's last
-    logits (B,V), the cache), the last two in float32."""
+    logits (B,V), the cache), the last two in float32.  ``frames``: an
+    enc-dec config's encoder input for both (in place of the serve
+    batch's zero frames, under which cross attention adds nothing)."""
     from repro_torch.launch.serve import serve_batch
     from repro_torch.models.attention import CacheSpec
     cfg = model.cfg
-    first = serve_batch(cfg, prompts)
+
+    def batch(tokens):
+        b = serve_batch(cfg, tokens)
+        if frames is not None:
+            b["enc_embeds"] = frames
+        return b
+    first = batch(prompts)
     spec = CacheSpec(first["tokens"].shape[1] + (
         first["embeds"].shape[1] if "embeds" in first else 0) + 1, None)
     logits, cache = model.prefill(params, first, spec)
     tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
     step, cache = model.decode_step(params, tok, cache, spec)
-    full, _ = model.forward(params, serve_batch(cfg, torch.cat([prompts, tok],
-                                                               1)))
+    full, _ = model.forward(params, batch(torch.cat([prompts, tok], 1)))
     return logits, step[:, 0].float(), full[:, -1].float(), cache
 
 
@@ -2373,7 +2459,7 @@ def gap_stats(step, full, prefix=""):
 
 
 def generate_phase(model, params, info, phase, batch, prompt, gen, expect,
-                   seed=0, check_model=None, check_f32=False):
+                   seed=0, check_model=None, check_f32=False, frames=None):
     """``generate`` once with the counts set to 0 (after a short warm-up
     call: cuBLAS handles, the allocator), then prefill + one decode step
     against forward over prompt + token (``decode_vs_forward``).
@@ -2384,7 +2470,8 @@ def generate_phase(model, params, info, phase, batch, prompt, gen, expect,
     With ``check_f32`` the bf16 gap is held to ``SERVE_BF16_GAP`` (the
     bf16 KV cache's rounding alone (C6) puts a few of qwen2-vl's bf16
     logits past SERVE_TOL, C31) and the same check on float32 parameters
-    drawn from the same seed to ``SERVE_F32_TOL``."""
+    drawn from the same seed to ``SERVE_F32_TOL``.  ``frames``: the
+    check's encoder input for an enc-dec config (``decode_vs_forward``)."""
     from repro_torch.kernels import launches, reset_launches
     from repro_torch.launch.serve import generate, serve_batch
     from repro_torch.models.api import build_model
@@ -2405,7 +2492,8 @@ def generate_phase(model, params, info, phase, batch, prompt, gen, expect,
                               CacheSpec(prompt + gen, None))
     first_equal = bool(torch.equal(
         torch.argmax(logits[:, -1], -1).to(torch.int32), toks[:, 0]))
-    logits, step, full, cache = decode_vs_forward(cm, params, prompts)
+    logits, step, full, cache = decode_vs_forward(cm, params, prompts,
+                                                  frames)
     ring = {}
     if "attn_local" in cfg.pattern_unit:        # the last local layer's ring
         pos = cache["unit"][cfg.pattern_unit.index("attn_local")]["pos"][-1]
@@ -2594,21 +2682,27 @@ CLUSTER_LM_FULL_GRADS = 16
 CLUSTER_LM_FULL_BATCH = 8
 
 
-KERNEL_OF_KIND = {"mamba": "mamba_scan", "rec": "rglru_scan",
-                  "attn": "swa_attention", "attn_local": "swa_attention"}
+# each block kind's kernel launches a call (attn_cross: its self and its
+# cross attention)
+KERNEL_OF_KIND = {"mamba": ("mamba_scan",), "rec": ("rglru_scan",),
+                  "attn": ("swa_attention",),
+                  "attn_local": ("swa_attention",),
+                  "attn_bidir": ("swa_attention",),
+                  "attn_cross": ("swa_attention", "swa_attention")}
 
 
 def kernel_counts(cfg, passes):
     """Launches of each scan and attention kernel for ``passes`` forward
     and backward passes: once a prologue layer and twice a unit layer a
-    pass (each unit repeat is checkpointed: the forward and the
-    backward's recompute)."""
+    pass (each unit repeat, and each encoder layer of an enc-dec config,
+    is checkpointed: the forward and the backward's recompute)."""
     counts = {}
     for kinds, per_layer in ((cfg.pattern_prologue, 1),
-                             (cfg.pattern_unit * cfg.unit_repeats, 2)):
+                             (cfg.pattern_unit * cfg.unit_repeats, 2),
+                             (("attn_bidir",) * cfg.encoder_layers
+                              if cfg.is_encdec else (), 2)):
         for kind in kinds:
-            name = KERNEL_OF_KIND.get(kind)
-            if name:
+            for name in KERNEL_OF_KIND.get(kind, ()):
                 counts[name] = counts.get(name, 0) + per_layer * passes
     return counts
 
@@ -3129,6 +3223,172 @@ def phase_swa_families(card):
             for i, (arch, shape) in enumerate(SWA_FAMILY_SHAPES.items())}
 
 
+# -- the enc-dec family and packed sequences ---------------------------------
+# seamless-m4t-large-v2 (arXiv:2308.11596: 24 encoder + 24 decoder layers,
+# d_model 1024, 16 heads, hd 64, vocab 256,206), the speech frontend a
+# stub (frame embeddings), at full width and depth; qwen2-1.5b on packed
+# documents (a PackedLMTask batch: documents of mean length 48, padding
+# at the rows' ends)
+SEAMLESS_ARCH = "seamless-m4t-large-v2"
+SEAMLESS_ENC = 512                # encoder frames of the serve check
+# B7's new masks: (label, B, S, T, H, K, hd, causal, segments)
+SWA_MASK_SHAPES = [
+    ("seamless_encoder", 4, 512, 512, 16, 16, 64, False, False),
+    ("seamless_cross", 4, 512, 512, 16, 16, 64, False, False),
+    ("seamless_cross_ragged", 4, 512, 1000, 16, 16, 64, False, False),
+    ("seamless_cross_max_encoder", 1, 512, 4096, 16, 16, 64, False, False),
+    ("qwen2_packed", 4, 512, 512, 12, 2, 128, True, True)]
+TRAIN_SEAMLESS_PODS, TRAIN_SEAMLESS_BATCH = 2, 8
+TRAIN_SEAMLESS_SEQ, TRAIN_SEAMLESS_STEPS = 512, 3
+PACKED_BATCH, PACKED_SEQ, PACKED_STEPS = 8, 512, 2
+# JAX tests/test_packing.py's tolerance: a packed document's logits
+# against the document alone
+PACKED_TOL = dict(rtol=3e-2, atol=3e-2)
+
+
+def packed_segments(b, s, vocab, seed=0):
+    """A PackedLMTask batch's (tokens, segments, positions, loss mask)
+    as tensors on the card."""
+    from repro_torch.data.packing import PackedLMTask
+    return PackedLMTask(vocab_size=vocab, seq_len=s, batch_size=b,
+                        seed=seed).batch(0, 0).tensors("cuda")
+
+
+def mask_pairs(segments, b, s, t, causal):
+    """(query, key) pairs that count, over the B rows: every pair
+    without segments (a causal band S(S+1)/2 a row); with segments the
+    causal pairs within each document, and the padding rows' (segment 0)
+    T keys counted apart (their output is the mean of V: PV work
+    only)."""
+    if segments is None:
+        return b * (s * t if not causal else s * (s + 1) // 2), 0
+    seg = segments.cpu().numpy()
+    valid = pad = 0
+    for row in seg:
+        ids, n = np.unique(row[row > 0], return_counts=True)
+        valid += int(np.sum(n * (n + 1) // 2 if causal else n * n))
+        pad += int(np.sum(row <= 0)) * t
+    return valid, pad
+
+
+def check_swa_mask(card, label, b, s, t, h, kh, hd, causal, seg, seed):
+    """B7 with a mask of the enc-dec family or packed sequences: bf16 and
+    f32 against the plain version (SWA_TOL), the bf16 call timed beside
+    the plain version and SDPA (``is_causal=False`` without segments;
+    a boolean (B, 1, S, S) mask of causal and segment pairs with them,
+    K/V repeated to H), with device times and the bound: bytes (q, k, v
+    and the segments read once, the output written once) against the
+    bf16 operations of the pairs that count (``mask_pairs``)."""
+    from repro_torch.kernels.swa_attention import swa_attention_gqa
+    from repro_torch.kernels.swa_attention.kernel import swa_attention_cuda
+    segments = packed_segments(b, s, 151_936)["segments"] if seg else None
+    rec = {"phase": "swa_attention_masks", "mode": label, "B": b, "S": s,
+           "T": t, "H": h, "K": kh, "hd": hd, "causal": causal,
+           "segments": seg}
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        q, k, v = (torch.randn(shape, device="cuda", generator=g).to(dtype)
+                   for shape in ((b, s, h, hd), (b, t, kh, hd),
+                                 (b, t, kh, hd)))
+
+        def kernel():
+            return swa_attention_cuda(q, k, v, None, causal, segments)
+
+        def plain():
+            return swa_attention_gqa(q, k, v, None, causal, segments)
+        out, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        key = "max_abs_err" if dtype == torch.bfloat16 else \
+            "max_abs_err_f32"
+        rec[key] = max_err(out.float(), ref.float(), SWA_TOL[dtype],
+                           f"swa_attention {label} {dtype}")
+        if seg:
+            pad = segments == 0
+            mean = v.float().mean(1, keepdim=True).repeat_interleave(
+                h // kh, 2).expand(b, s, h, hd)
+            rec[key.replace("max_abs_err", "padding_rows_vs_mean_of_v")] = \
+                max_err(out.float()[pad], mean[pad], SWA_TOL[dtype],
+                        f"swa_attention {label} padding rows")
+    rec["tolerance"] = {str(k).replace("torch.", ""): v
+                        for k, v in SWA_TOL.items()}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt = q.transpose(1, 2)
+    kt, vt = (x.repeat_interleave(h // kh, dim=2).transpose(1, 2)
+              for x in (k, v))
+    mask = None
+    if seg:
+        pos = torch.arange(s, device="cuda")
+        sq = segments[:, None, :, None]
+        mask = (pos[None, None, None, :] <= pos[None, None, :, None]) & \
+            (sq == segments[:, None, None, :]) & (sq > 0)
+
+    def lib():
+        return sdpa(qt, kt, vt, attn_mask=mask)
+    real = (segments > 0) if seg else torch.ones((b, s), dtype=torch.bool,
+                                                  device="cuda")
+    lib_err = (lib().transpose(1, 2).float() - ref.float())[real]
+    valid, pad = mask_pairs(segments, b, s, t, causal)
+    es = q.element_size()
+    nbytes = es * (2 * b * s * h * hd + 2 * b * t * kh * hd) + (
+        segments.numel() * 4 if seg else 0)
+    nops = 4 * h * hd * valid + 2 * h * hd * pad
+    tb, to = nbytes / card.bw * 1e3, nops / card.bf16 * 1e3
+    rec.update(
+        ms=time_ms(kernel), plain_ms=time_ms(plain),
+        library="torch.nn.functional.scaled_dot_product_attention" + (
+            " with a boolean causal-and-segment mask, K/V repeated to "
+            f"{h} heads" if seg else " (is_causal=False)"),
+        library_ms=time_ms(lib),
+        library_max_abs_err=float(lib_err.abs().max()),
+        library_device_ms=device_ms(lib, "", per_call=True),
+        device_ms=device_ms(kernel, "swa_attention"),
+        pairs=valid, padding_row_keys=pad, bytes=nbytes, flops=nops,
+        bound_bytes_ms=tb, bound_ops_ms=to, bound_ms=max(tb, to),
+        bound_by="bytes" if tb >= to else "operations")
+    rec["device_share_of_bound"] = rec["bound_ms"] / rec["device_ms"]
+    rec["device_tflops"] = nops / rec["device_ms"] / 1e9
+    emit(rec)
+    return rec
+
+
+def phase_swa_masks(card):
+    """B7 at the enc-dec family's and packed sequences' shapes
+    (SWA_MASK_SHAPES): ``check_swa_mask`` each."""
+    return {label: check_swa_mask(card, label, *shape, seed=90 + i)
+            for i, (label, *shape) in enumerate(SWA_MASK_SHAPES)}
+
+
+def seamless_frames(cfg, batch, seed=7):
+    """Encoder frames (batch, SEAMLESS_ENC, d) ~ 0.02 N(0, 1), bf16, on
+    the card, from numpy."""
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor((rng.standard_normal(
+        (batch, SEAMLESS_ENC, cfg.d_model)) * 0.02).astype(np.float32),
+        device="cuda").to(torch.bfloat16)
+
+
+def phase_serve_seamless():
+    """seamless-m4t-large-v2 at full width and depth in bf16:
+    ``generate_phase`` (batch 4, prompt 512, the serve batch's zero
+    frames of length 512, 32 tokens): one swa_attention an encoder layer
+    and two a decoder layer (self and cross) in the prefill, none in
+    decode (plain float32 attention over the caches); the check's
+    prefill + decode against forward runs on random frames, where cross
+    attention matters."""
+    model, params, info = serve_model(SEAMLESS_ARCH)
+    cfg = model.cfg
+    info.update(encoder_layers=cfg.encoder_layers, encoder_frames=min(
+        cfg.max_encoder_len, SERVE_PROMPT), check_frames="0.02 N(0, 1)")
+    rec = generate_phase(
+        model, params, info, "serve_generate_seamless", SERVE_BATCH,
+        SERVE_PROMPT, SERVE_GEN,
+        lambda c: {"swa_attention": c.encoder_layers + 2 * c.num_layers},
+        frames=seamless_frames(cfg, SERVE_BATCH))
+    del model, params
+    torch.cuda.empty_cache()
+    return rec
+
+
 def no_drop(model):
     """The same model at capacity_factor = E / top_k, where dispatch
     drops no token (a ragged forward groups otherwise than a prefill)."""
@@ -3290,20 +3550,22 @@ def phase_kv_quant(model, params):
     return rec
 
 
-def phase_train_granite_moe():
-    """launch.train.main on granite-moe-3b-a800m at full width with its
-    depth cut (TRAIN_MOE_CUT: its config read through a wrapper of the
-    CLI's get_config), 2 pods, batch 8 (4 a pod), 512 tokens, 3 steps;
-    each step's loss (the cross entropy plus 0.01 x the router loss) and
-    the final state read through a wrapper around build_train_step.
-    Checks: finite losses, v0 == sum_p v_p bit for bit, swa_attention
-    twice a layer a pod a step."""
+def train_cli_phase(phase, arch, cut, pods, batch, seq, nsteps):
+    """launch.train.main on ``arch`` at full width, its depth cut by
+    ``cut`` (its config read through a wrapper of the CLI's get_config;
+    None: full depth), ``pods`` pods, ``batch`` x ``seq``, ``nsteps``
+    steps, no checkpoint; each step's loss (the cross entropy plus 0.01 x
+    the MoE router loss) and the final state read through a wrapper
+    around build_train_step.  Checks: finite losses and parameters,
+    v0 == sum_p v_p bit for bit, each kernel's launches (twice a unit or
+    encoder layer a pod a step)."""
     import dataclasses
     from repro_torch.core.types import tree_leaves
     from repro_torch.kernels import launches, reset_launches
     from repro_torch.launch import train as train_mod
     real_cfg, real_step = train_mod.get_config, train_mod.build_train_step
-    cfg = dataclasses.replace(real_cfg(GRANITE_ARCH), **TRAIN_MOE_CUT)
+    cut = cut or {}
+    cfg = dataclasses.replace(real_cfg(arch), **cut)
     steps, last = [], {}
 
     def recording(*a, **kw):
@@ -3318,52 +3580,209 @@ def phase_train_granite_moe():
             return state, metrics
         return timed
 
-    train_mod.get_config = lambda name: dataclasses.replace(
-        real_cfg(name), **TRAIN_MOE_CUT)
+    train_mod.get_config = lambda name: dataclasses.replace(real_cfg(name),
+                                                            **cut)
     train_mod.build_train_step = recording
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
     try:
-        train_mod.main(["--arch", GRANITE_ARCH, "--pods", str(TRAIN_MOE_PODS),
-                        "--batch", str(TRAIN_MOE_BATCH), "--seq",
-                        str(TRAIN_MOE_SEQ), "--steps", str(TRAIN_MOE_STEPS),
-                        "--log-every", "1"])
+        train_mod.main(["--arch", arch, "--pods", str(pods), "--batch",
+                        str(batch), "--seq", str(seq), "--steps",
+                        str(nsteps), "--log-every", "1"])
     finally:
         train_mod.get_config, train_mod.build_train_step = real_cfg, real_step
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = launches()
     state = last.pop("state")
-    rec = train_record("train_granite_moe", cfg, steps, counts, secs,
-                       TRAIN_MOE_BATCH, TRAIN_MOE_SEQ,
+    rec = train_record(phase, cfg, steps, counts, secs, batch, seq,
                        torch.cuda.max_memory_allocated())
     theta = tree_leaves(state["theta"])
-    rec.update(cut=f"depth: {real_cfg(GRANITE_ARCH).num_layers} layers cut "
-               f"to {cfg.num_layers}; width as published",
-               pods=TRAIN_MOE_PODS, compute="bfloat16", state="float32",
-               experts=cfg.num_experts, top_k=cfg.experts_per_tok,
+    rec.update(pods=pods, compute="bfloat16", state="float32",
                params=sum(l.numel() for l in theta),
                state_gb=sum(l.numel() * l.element_size()
                             for l in tree_leaves(state)) / 1e9,
-               expected_launches=kernel_counts(
-                   cfg, TRAIN_MOE_PODS * TRAIN_MOE_STEPS))
+               expected_launches=kernel_counts(cfg, pods * nsteps))
+    if cut:
+        rec["cut"] = (f"depth: {real_cfg(arch).num_layers} layers cut to "
+                      f"{cfg.num_layers}; width as published")
     rec["v0_is_sum_of_pod_momenta_bit_for_bit"] = all(
         torch.equal(torch.sum(v, dim=0), v0) for v, v0 in zip(
             tree_leaves(state["v"]), tree_leaves(state["v0"])))
     finite = all(np.isfinite(l) for l, _ in steps) and all(
         bool(torch.isfinite(l).all()) for l in theta)
     del state, theta
+    torch.cuda.empty_cache()
+    return rec, counts, finite
+
+
+def check_train(phase, rec, counts, finite, nsteps):
     emit(rec)
-    if not finite or len(steps) != TRAIN_MOE_STEPS:
-        raise AssertionError("train_granite_moe: non-finite losses or "
-                             "parameters")
+    if not finite or len(rec["losses"]) != nsteps:
+        raise AssertionError(f"{phase}: non-finite losses or parameters")
     if not rec["v0_is_sum_of_pod_momenta_bit_for_bit"]:
-        raise AssertionError("train_granite_moe: v0 is not the sum of the "
-                             "pods' momenta")
-    check_counts("train_granite_moe", counts, rec["expected_launches"])
+        raise AssertionError(f"{phase}: v0 is not the sum of the pods' "
+                             f"momenta")
+    check_counts(phase, counts, rec["expected_launches"])
     return rec
+
+
+def phase_train_granite_moe():
+    """``train_cli_phase`` on granite-moe-3b-a800m at full width with its
+    depth cut (TRAIN_MOE_CUT), 2 pods, batch 8 (4 a pod), 512 tokens, 3
+    steps: the router loss in each step's loss."""
+    from repro_torch.configs import get_config
+    rec, counts, finite = train_cli_phase(
+        "train_granite_moe", GRANITE_ARCH, TRAIN_MOE_CUT, TRAIN_MOE_PODS,
+        TRAIN_MOE_BATCH, TRAIN_MOE_SEQ, TRAIN_MOE_STEPS)
+    cfg = get_config(GRANITE_ARCH)
+    rec.update(experts=cfg.num_experts, top_k=cfg.experts_per_tok)
+    return check_train("train_granite_moe", rec, counts, finite,
+                       TRAIN_MOE_STEPS)
+
+
+def phase_train_seamless():
+    """``train_cli_phase`` on seamless-m4t-large-v2 at full width and
+    depth (24 + 24 layers, 2.03B parameters), 2 pods, batch 8 x 512
+    (encoder frames of 512 from the CLI's stream), 3 steps, no
+    checkpoint: one swa_attention an encoder layer and two a decoder
+    layer, each twice a pod a step."""
+    rec, counts, finite = train_cli_phase(
+        "train_seamless", SEAMLESS_ARCH, None, TRAIN_SEAMLESS_PODS,
+        TRAIN_SEAMLESS_BATCH, TRAIN_SEAMLESS_SEQ, TRAIN_SEAMLESS_STEPS)
+    from repro_torch.configs import get_config
+    rec["encoder_layers"] = get_config(SEAMLESS_ARCH).encoder_layers
+    return check_train("train_seamless", rec, counts, finite,
+                       TRAIN_SEAMLESS_STEPS)
+
+
+def phase_packed_qwen2():
+    """qwen2-1.5b at full width and depth on a PackedLMTask batch (8 x
+    512; segments with padding at the rows' ends, positions restarting
+    at each document, the loss mask): the f32 train state of 2 pods
+    (28.4 GB) from a seeded draw; (1) one pod's loss and gradient at the
+    bf16 look-ahead, as a step takes them (finite; swa_attention twice a
+    layer); (2) 2 pod-round steps (finite losses, v0 == sum_p v_p bit
+    for bit, twice a layer a pod a step); (3) document isolation on the
+    stepped parameters: the longest second document of a row, its logits
+    in the packed forward against the document run alone, in float32
+    within
+    PACKED_TOL (JAX tests/test_packing.py's tolerance; one swa_attention
+    a layer a forward) and in bf16 (recorded)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.types import tree_flatten, tree_leaves, \
+        tree_unflatten
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.launch.steps import (TrainSettings, build_train_step,
+                                          init_train_state)
+    from repro_torch.models.api import build_model
+    cfg = get_config(TRAIN_ARCH)
+    model = build_model(cfg)
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(model, torch.Generator(device="cuda")
+                             .manual_seed(0), TRAIN_PODS, "cuda")
+    batch = packed_segments(PACKED_BATCH, PACKED_SEQ, cfg.vocab_size)
+    seg = batch["segments"]
+    rec = {"phase": "packed_qwen2", "arch": cfg.name,
+           "num_layers": cfg.num_layers, "batch": PACKED_BATCH,
+           "seq": PACKED_SEQ, "pods": TRAIN_PODS,
+           "documents": int(seg.max(1).values.sum()),
+           "padding_tokens": int((seg == 0).sum()),
+           "masked_targets": int((batch["loss_mask"] == 0).sum())}
+    # (1) one pod's loss and gradient
+    half = {k: v[:PACKED_BATCH // TRAIN_PODS] for k, v in batch.items()}
+    leaves, td = tree_flatten(state["theta"])
+    hat16 = [l.detach().to(torch.bfloat16).requires_grad_(True)
+             for l in leaves]
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        loss = model.loss(tree_unflatten(td, hat16), half)
+        grads = torch.autograd.grad(loss, hat16)
+    torch.cuda.synchronize()
+    rec.update(grad_seconds=time.perf_counter() - t0,
+               loss=float(loss.detach()),
+               grad_norm=float(torch.sqrt(sum(torch.sum(g.float() ** 2)
+                                              for g in grads))))
+    grad_counts = launches()
+    finite = np.isfinite(rec["loss"]) and np.isfinite(rec["grad_norm"])
+    del hat16, grads, loss
+    check_counts("packed_qwen2 gradient", grad_counts, kernel_counts(cfg, 1))
+    # (2) the pod-round steps
+    step = build_train_step(model, TrainSettings(lr=1e-3))
+    reset_launches()
+    losses, secs = [], []
+    for _ in range(PACKED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        secs.append(time.perf_counter() - t0)
+    step_counts = launches()
+    check_counts("packed_qwen2 steps", step_counts,
+                 kernel_counts(cfg, TRAIN_PODS * PACKED_STEPS))
+    rec.update(losses=losses, step_seconds=secs,
+               tok_per_s=PACKED_BATCH * PACKED_SEQ / float(np.median(secs)),
+               v0_is_sum_of_pod_momenta_bit_for_bit=all(
+                   torch.equal(torch.sum(v, dim=0), v0) for v, v0 in zip(
+                       tree_leaves(state["v"]), tree_leaves(state["v0"]))))
+    finite = finite and all(np.isfinite(l) for l in losses)
+    theta = state["theta"]
+    del state
+    torch.cuda.empty_cache()
+    # (3) document isolation: the longest second document of a row
+    r = int(torch.argmax((seg == 2).sum(1)))
+    where = torch.nonzero(seg[r] == 2)[:, 0]
+    lo, hi = int(where[0]), int(where[-1]) + 1
+    one = {k: v[r:r + 1] for k, v in batch.items() if k != "loss_mask"}
+    alone = {"tokens": batch["tokens"][r:r + 1, lo:hi]}
+    reset_launches()
+    gaps = {}
+    with torch.no_grad():
+        for dtype in (torch.float32, torch.bfloat16):
+            m = build_model(cfg, dtype)
+            packed, _ = m.forward(theta, one)
+            solo, _ = m.forward(theta, alone)
+            d = (packed[0, lo:hi].float() - solo[0].float()).abs()
+            gaps[str(dtype).replace("torch.", "")] = float(d.max())
+            if dtype == torch.float32:
+                max_err(packed[0, lo:hi].float(), solo[0].float(),
+                        PACKED_TOL, "packed_qwen2 document isolation")
+            del packed, solo
+    iso_counts = launches()
+    check_counts("packed_qwen2 isolation", iso_counts,
+                 {"swa_attention": 4 * cfg.num_layers})
+    rec.update(second_document={"row": r, "span": [lo, hi]},
+               isolation_max_abs_err=gaps,
+               isolation_tolerance=PACKED_TOL,
+               launches={"gradient": grad_counts["swa_attention"],
+                         "steps": step_counts["swa_attention"],
+                         "isolation": iso_counts["swa_attention"]},
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               seconds=time.perf_counter() - t_phase)
+    del theta
+    torch.cuda.empty_cache()
+    emit(rec)
+    if not finite:
+        raise AssertionError("packed_qwen2: non-finite losses")
+    if not rec["v0_is_sum_of_pod_momenta_bit_for_bit"]:
+        raise AssertionError("packed_qwen2: v0 is not the sum of the pods' "
+                             "momenta")
+    return rec
+
+
+def phase_encdec_packed(paths):
+    """The enc-dec family served and trained at full width and depth,
+    and qwen2-1.5b trained on packed documents; each record into
+    ``paths``."""
+    paths["serve_generate_seamless"] = phase_serve_seamless()
+    paths["train_seamless"] = phase_train_seamless()
+    paths["packed_qwen2"] = phase_packed_qwen2()
 
 
 def phase_families(paths):
@@ -3394,6 +3813,7 @@ def main():
     from repro_torch.kernels import (  # noqa: F401
         _build, dana_update, flat_update, mamba_scan, rglru_scan,
         swa_attention)
+    t_start = time.perf_counter()
     card = Card()
     emit({"phase": "device", "nvidia_smi": card.smi, "kind": card.name,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
@@ -3424,11 +3844,13 @@ def main():
     sw = phase_swa_attention(card)
     sd = phase_swa_dense(card)
     sf = phase_swa_families(card)
-    phase_lm_grad()
+    sm = phase_swa_masks(card)
+    lg = phase_lm_grad()
     # first of the model phases: llama4-scout's 14 layers (65.8 GB, and
     # a layer's draw beside them) need the card as a fresh process has it
     families = {}
     phase_families(families)
+    phase_encdec_packed(families)
     conf = configuration()
     main_rec, hist_e, final_e = phase_main_path(conf)
     paths = {"main_path": main_rec,
@@ -3590,6 +4012,20 @@ def main():
                     "max_abs_err_f32", "device_tflops",
                     "device_share_of_bound"):
             kernels[6][f"{key}_{PHASE_KEY[arch]}"] = rec[key]
+    for label, rec in sm.items():
+        for key in ("ms", "device_ms", "bound_ms", "bound_by", "plain_ms",
+                    "library_ms", "library_device_ms", "max_abs_err",
+                    "max_abs_err_f32", "device_tflops",
+                    "device_share_of_bound"):
+            kernels[6][f"{key}_{label}"] = rec[key]
+    for path in ("serve_generate_seamless", "train_seamless"):
+        kernels[6][f"launches_{path}"] = \
+            paths[path]["launches"]["swa_attention"]
+    kernels[6]["launches_packed_qwen2"] = paths["packed_qwen2"]["launches"]
+    for variant, rec in lg.items():
+        kernels[6][f"launches_lm_grad_{variant}"] = \
+            rec["launches"]["swa_attention"]
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(card.smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": card.name,

@@ -8,7 +8,8 @@ so this module imports no JAX:
   ``w_up``, ``w_down`` and ``shared``, or a JAX decode cache,
   ``prefill``'s or ``init_cache``'s: ``k``, ``v`` bfloat16 or int8 with
   float32 ``k_scale``, ``v_scale``, ``pos`` and ``t`` int32, ``conv``,
-  ``h``, ``ssm``) -> the same tree of tensors, leaf by leaf in its own
+  ``h``, ``ssm``; an enc-dec cache's ``{"self", "cross"}`` blocks and
+  its ``enc_out``) -> the same tree of tensors, leaf by leaf in its own
   type, so both packages can decode from one cache;
 * ``flat_state_from_numpy(flat)``: the JAX ``FlatAlgorithm`` state dict
   of any flat-eligible member (``theta``, ``v``, ``v0``, ``u2``,
@@ -29,7 +30,8 @@ so this module imports no JAX:
   ``in_gate``, ``conv_w``, ``w_a``, ``w_i``, ``lam``, ...), attention's
   (``wq``, ``wk``, ``wv``, ``wo``, the qkv biases), the MLP's and the
   MoE layer's (``router`` (d, E), the experts stacked (E, d, ff) and (E,
-  ff, d) under the unit's repeat axis, the optional ``shared`` MLP).
+  ff, d) under the unit's repeat axis, the optional ``shared`` MLP), and
+  the enc-dec family's (the ``encoder`` subtree, ``lnx`` and ``xattn``).
 
 numpy arrays of JAX's bfloat16 (``ml_dtypes``) become torch bfloat16
 tensors exactly (through float32, which holds every bfloat16 value).

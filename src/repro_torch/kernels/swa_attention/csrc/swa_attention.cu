@@ -1,19 +1,32 @@
-// Hopper (sm_90a) kernels of causal sliding-window flash attention, bound
-// with ctypes.
+// Hopper (sm_90a) kernels of flash attention: causal with a sliding
+// window, non-causal over keys of another length, and segment masks;
+// bound with ctypes.
 //
 // swa_attention replaces the TPU kernel
 //   src/repro/kernels/swa_attention/kernel.py::swa_attention_pallas
-// and computes ref.py::swa_attention_ref: for q (B, S, H, hd) and k, v
-// (B, S, K, hd) with K dividing H (GQA; query head h reads kv head
-// h / (H/K), in place: K/V are never repeated), each query at position
-// i attends to the keys j with i - window < j <= i,
-// softmax(q.k / sqrt(hd)) v, with the output in the inputs' type.  The
-// TPU kernel ran a grid (B*H, S/128) over K/V already repeated to H
-// heads and visited the band's kv blocks with a fori_loop.  Here a block
-// owns a tile of queries of one (batch, head) and visits only the kv
-// tiles that meet its band [q0 - window + 1, q_last], so the work is
-// O(S * window), not O(S^2).  Any S >= 1 (the last tiles mask their rows
-// and keys past S), head_dim 1..256 (zero-padded in shared memory to the
+// (causal, sliding window, S == T) and covers the other cases of the JAX
+// model's jnp flash_attention (src/repro/models/attention.py:83-187): it
+// computes ref.py::swa_attention_ref.  For q (B, S, H, hd) and k, v
+// (B, T, K, hd) with K dividing H (GQA; query head h reads kv head
+// h / (H/K), in place: K/V are never repeated), query i attends to
+//   causal (T == S):  the keys j with i - window < j <= i;
+//   non-causal:       every key j < T (the encoder, T == S, and cross
+//                     attention over the encoder's T frames);
+// and, with segments (B, S) int32 (packed documents), only the keys whose
+// segment equals the query's, which must be > 0 (keys take
+// segments[:, :T]).  softmax(q.k / sqrt(hd)) v, the output in the inputs'
+// type.  A masked score is -1e30, as in the JAX recurrence, so a row
+// masked against every key (a segment-0 padding row) gets p = 1 for
+// every key and the mean of V over all T keys; keys past T in a ragged
+// last tile score -inf and never count.  The TPU kernel ran a grid
+// (B*H, S/128) over K/V already repeated to H heads and visited the
+// band's kv blocks with a fori_loop.  Here a block owns a tile of
+// queries of one (batch, head) and visits only the kv tiles that meet
+// its band [q0 - window + 1, q_last] when causal, so the work is
+// O(S * window), not O(S^2); every kv tile when not causal, or when the
+// tile holds a padding row (the mean above needs every key: a cost paid
+// by the padding tiles only).  Any S, T >= 1 (the last tiles mask their
+// rows and keys), head_dim 1..256 (zero-padded in shared memory to the
 // template's HD), any window >= 1.  One entry point, two kernels, picked
 // by the inputs' type (both count as one launch of swa_attention):
 //
@@ -22,22 +35,23 @@
 //   Tiles    a block of 4 warps owns kBq = 64 queries (16 rows a warp)
 //            and walks kv tiles of kBk = 64 keys.  HD is 64, 128 or 256
 //            (the next at or above hd).  Dynamic shared memory holds the
-//            Q tile, one K and one V tile: 24 KB at HD 64, 48 KB at 128,
-//            96 KB at 256, so two blocks share an SM even at HD 256
+//            Q tile, one K and one V tile (and, with segments, the kv
+//            tile's 64 ids): 24 KB at HD 64, 48 KB at 128, 96 KB at 256,
+//            so two blocks share an SM even at HD 256
 //            (__launch_bounds__(128, 2): 255 registers a thread at most;
-//            ptxas gives 247, no spills) and one block's copies run under
-//            the other's products.  Rows of HD bf16 are cut into 16-byte
-//            chunks stored at chunk ^ (row % 8), so the 8 row addresses of
-//            every ldmatrix phase fall in distinct banks.
-//   Copies   cp.async.cg, 16 bytes a thread, zero-filled past S and past
-//            hd (src-size 0), interleaved as FlashAttention-2 does: V_t's
-//            copy runs under Q K_t^T and the softmax, K_{t+1}'s under
-//            P V_t; cp.async.wait_group 0 and a barrier precede each use
-//            (two barriers a tile).  A thread keeps one chunk column, so
-//            each copy's shared address is one of two swizzled offsets
-//            plus a constant.  Inputs whose hd is no multiple of 8 (or
-//            whose pointers are not 16-byte aligned) take a scalar copy
-//            loop in the same kernel.
+//            ptxas gives 245-248, no spills) and one block's copies run
+//            under the other's products.  Rows of HD bf16 are cut into
+//            16-byte chunks stored at chunk ^ (row % 8), so the 8 row
+//            addresses of every ldmatrix phase fall in distinct banks.
+//   Copies   cp.async.cg, 16 bytes a thread, zero-filled past S (Q), T
+//            (K, V) and hd (src-size 0), interleaved as FlashAttention-2
+//            does: V_t's copy runs under Q K_t^T and the softmax,
+//            K_{t+1}'s under P V_t; cp.async.wait_group 0 and a barrier
+//            precede each use (two barriers a tile).  A thread keeps one
+//            chunk column, so each copy's shared address is one of two
+//            swizzled offsets plus a constant.  Inputs whose hd is no
+//            multiple of 8 (or whose pointers are not 16-byte aligned)
+//            take a scalar copy loop in the same kernel.
 //   Products mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32.
 //            S = Q K^T: A from Q by ldmatrix.x4, B from K rows by
 //            ldmatrix.x4; O += P V: B from V by ldmatrix.x4.trans.  Each
@@ -56,10 +70,21 @@
 //            FlashAttention and the JAX model's own flash_attention,
 //            models/attention.py:158, round it; the Pallas kernel keeps P
 //            in f32).  Only the tiles that cross the diagonal or the
-//            window's lower edge apply the mask (-1e30); interior tiles
-//            skip it.  Keys before a row's first valid key give p = 1 only
-//            while that row's m is still -1e30, and the first valid tile's
+//            window's lower edge, hold keys past T, or mix segments apply
+//            the mask (-1e30, -inf past T); interior tiles skip it.  Keys
+//            before a row's first valid key give p = 1 only while that
+//            row's m is still -1e30, and the first valid tile's
 //            2^(m_old - m_new) = 0 wipes them, as in the Pallas kernel.
+//   Masks    the causal flag and the presence of segments are template
+//            parameters (four instances an HD), so the causal kernel
+//            without segments carries none of the other masks' code.
+//            With segments each thread reads its two rows' ids once;
+//            barriers that reduce (__syncthreads_or / _and) find whether
+//            the query tile holds a padding row and whether it is of one
+//            segment, and the loop's first barrier of each kv tile whether
+//            the tile's 64 keys (their ids copied to shared memory beside
+//            K) are of that segment too: then the tile skips the segment
+//            mask.
 //   Output   acc / max(l, 1e-30), rounded to bf16, staged in the warp's
 //            own Q rows and written as 16-byte chunks.
 //   Grid     one dimension, dispatched in order, longest bands first:
@@ -68,13 +93,15 @@
 //            grid's tail.
 //
 // float32: the CUDA-core kernel (swa_attention_kernel): tensor cores
-// cannot meet the float32 tolerance of 2e-5.  One block of 128 threads owns kBq = 32 queries and walks kv tiles
-// of kBk = 32 keys through shared memory in float32 (q scaled by
-// 1/sqrt(hd) as it is loaded); each thread computes a 2 x 4 micro-tile of
-// the scores (rows rg, rg+16; columns cg + 8j), masks it and stores it;
-// each warp runs the online softmax of 8 rows (a lane per key, warp
-// shuffles for max and sum) and adds P V with lane L owning dims L, L+32,
-// ... of its rows.  HD is the next of 32, 64, 128, 256.
+// cannot meet the float32 tolerance of 2e-5.  One block of 128 threads
+// owns kBq = 32 queries and walks kv tiles of kBk = 32 keys through shared
+// memory in float32 (q scaled by 1/sqrt(hd) as it is loaded); each thread
+// computes a 2 x 4 micro-tile of the scores (rows rg, rg+16; columns
+// cg + 8j), masks it (the segment ids of the tile's rows and keys in
+// shared memory, checked on every element) and stores it; each warp runs
+// the online softmax of 8 rows (a lane per key, warp shuffles for max and
+// sum) and adds P V with lane L owning dims L, L+32, ... of its rows.  HD
+// is the next of 32, 64, 128, 256.
 //
 // Bound.  FLOPs = 4 * B * H * hd * (number of (query, key) pairs in the
 // band); bytes = q, k, v read once and o written once.  At
@@ -101,6 +128,20 @@
 // The float32 kernel runs on the CUDA cores (67 TFLOP/s of float32), and
 // its shared-memory traffic (about two loads per multiply-add) is its
 // limit.
+// Non-causal and cross attention (seamless-m4t-large-v2: H = K = 16,
+// hd 64).  Every (query, key) pair counts: B * S * T pairs a head.  At
+// the encoder and cross shapes (B=4, S=T=512) 4.3 GFLOP, 0.0043 ms at
+// 989 TFLOP/s, against 16.8 MB in bf16 (q, k, v, o 4.2 MB each), 0.0050
+// ms: bytes bound it, barely.  At (1, 512) queries over the longest
+// encoder output (T = 4096) 8.6 GFLOP, 0.0087 ms, against 18.9 MB, 0.0056
+// ms: operations bound it.  The design is the causal one without the
+// band (every tile interior but the last, ragged one), so what limits it
+// is what limits the causal kernel: ldmatrix traffic from shared memory
+// and mma.sync, not HBM.  Packed sequences (qwen2-1.5b: B=4, S=512, 12
+// heads, 2 kv heads, hd 128): the causal band plus, for tiles with a
+// padding row, every tile.  The pairs that count are those within each
+// document (at most the causal band's: 3.2 GFLOP, 0.0033 ms) against
+// 14.7 MB, 0.0044 ms: bytes bound it.
 //
 // Offsets are size_t.
 #include <cuda_bf16.h>
@@ -116,7 +157,13 @@ namespace {
 constexpr int kThreads = 128;   // 4 warps
 constexpr int kBq = 32;         // queries per block
 constexpr int kBk = 32;         // keys per kv tile
-constexpr float kNegInf = -1e30f;
+constexpr float kNegInf = -1e30f;   // a masked score, as the JAX recurrence
+
+// the score of a key past T: -inf, so its p is 0 even in a row whose
+// every score is kNegInf
+__device__ __forceinline__ float no_key() {
+  return __int_as_float(0xff800000);
+}
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
@@ -135,13 +182,25 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// The problem's sizes and masks, passed by value to both kernels.
+struct Dims {
+  int seq;        // S: queries (and, causal, keys)
+  int kv_len;     // T: keys
+  int heads;      // H
+  int kv_heads;   // K, dividing H
+  int hd;         // head_dim
+  int window;     // causal only: keys in (i - window, i]
+  int causal;     // 0: every key below T
+};
+
 template <int HD>
-struct Smem {                        // sizes in floats
+struct Smem {                        // sizes in 4-byte words
   static constexpr int kQ = kBq * (HD + 1);
   static constexpr int kK = kBk * (HD + 1);
   static constexpr int kV = kBk * HD;
   static constexpr int kP = kBq * (kBk + 1);
-  static constexpr size_t kBytes = (size_t)(kQ + kK + kV + kP) *
+  static constexpr int kSeg = kBq + kBk;   // the tile's segment ids
+  static constexpr size_t kBytes = (size_t)(kQ + kK + kV + kP + kSeg) *
                                    sizeof(float);
 };
 
@@ -149,28 +208,31 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
     swa_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, T* __restrict__ o,
-                         int seq, int heads, int kv_heads, int hd,
-                         int window, float scale) {
+                         const int* __restrict__ seg, Dims p, float scale) {
   extern __shared__ float smem[];
   float* qs = smem;                        // [kBq][HD + 1], scaled
   float* ks = qs + Smem<HD>::kQ;           // [kBk][HD + 1]
   float* vs = ks + Smem<HD>::kK;           // [kBk][HD]
   float* ps = vs + Smem<HD>::kV;           // [kBq][kBk + 1]
+  int* qseg = reinterpret_cast<int*>(ps + Smem<HD>::kP);   // [kBq]
+  int* kseg = qseg + kBq;                                  // [kBk]
   constexpr int kDims = HD / 32;           // dims per lane in PV
 
+  const int seq = p.seq, kv_len = p.kv_len, hd = p.hd, window = p.window;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
   const int q0 = blockIdx.x * kBq;
   const int h = blockIdx.y;
   const size_t b = blockIdx.z;
-  const int kh = h / (heads / kv_heads);
-  const size_t q_stride = (size_t)heads * hd;      // one position of q, o
-  const size_t kv_stride = (size_t)kv_heads * hd;  // one position of k, v
+  const int kh = h / (p.heads / p.kv_heads);
+  const size_t q_stride = (size_t)p.heads * hd;      // one position of q, o
+  const size_t kv_stride = (size_t)p.kv_heads * hd;  // one position of k, v
   const T* qb = q + b * (size_t)seq * q_stride + (size_t)h * hd;
-  const T* kb = k + b * (size_t)seq * kv_stride + (size_t)kh * hd;
-  const T* vb = v + b * (size_t)seq * kv_stride + (size_t)kh * hd;
+  const T* kb = k + b * (size_t)kv_len * kv_stride + (size_t)kh * hd;
+  const T* vb = v + b * (size_t)kv_len * kv_stride + (size_t)kh * hd;
   T* ob = o + b * (size_t)seq * q_stride + (size_t)h * hd;
+  const int* sb = seg == nullptr ? nullptr : seg + b * (size_t)seq;
 
   for (int i = tid; i < kBq * HD; i += kThreads) {
     const int r = i / HD, d = i % HD;
@@ -179,6 +241,16 @@ __global__ void __launch_bounds__(kThreads)
         (s < seq && d < hd) ? to_f32(qb[(size_t)s * q_stride + d]) * scale
                             : 0.0f;
   }
+  // the tile's segment ids; a row of segment <= 0 attends no key
+  bool pad = false;
+  if (sb != nullptr && tid < kBq) {
+    const int s = q0 + tid;
+    qseg[tid] = s < seq ? sb[s] : 1;
+    pad = s < seq && qseg[tid] <= 0;
+  }
+  // a tile with such a row visits every key: the row's scores are all
+  // -1e30, so each key's p is 1 and the row takes the mean of V over T
+  const bool has_pad = __syncthreads_or(pad);
 
   float m[8], l[8], acc[8][kDims];
 #pragma unroll
@@ -189,20 +261,24 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < kDims; ++j) acc[r][j] = 0.0f;
   }
 
-  const int q_last = min(q0 + kBq, seq) - 1;
-  const int k_first = max(0, q0 - window + 1);
+  // keys [k_begin, k_end): the causal band, or all T keys
+  const bool all_keys = !p.causal || has_pad;
+  const int k_begin = all_keys ? 0 : max(0, q0 - window + 1);
+  const int k_end = all_keys ? kv_len : min(q0 + kBq, seq);
   const int rg = tid / 8, cg = tid % 8;    // score micro-tile
 
-  for (int k0 = (k_first / kBk) * kBk; k0 <= q_last; k0 += kBk) {
+  for (int k0 = (k_begin / kBk) * kBk; k0 < k_end; k0 += kBk) {
     __syncthreads();   // the previous tile is consumed (the Q tile written)
     for (int i = tid; i < kBk * HD; i += kThreads) {
       const int r = i / HD, d = i % HD;
       const int s = k0 + r;
-      const bool in = s < seq && d < hd;
+      const bool in = s < kv_len && d < hd;
       const size_t e = (size_t)s * kv_stride + d;
       ks[r * (HD + 1) + d] = in ? to_f32(kb[e]) : 0.0f;
       vs[r * HD + d] = in ? to_f32(vb[e]) : 0.0f;
     }
+    if (sb != nullptr && tid < kBk)   // keys take segments[:, :T], T <= S
+      kseg[tid] = k0 + tid < kv_len ? sb[k0 + tid] : -1;
     __syncthreads();
 
     float sc[2][4];
@@ -223,14 +299,25 @@ __global__ void __launch_bounds__(kThreads)
         for (int j = 0; j < 4; ++j) sc[i][j] = __fmaf_rn(qv[i], kv[j],
                                                          sc[i][j]);
     }
+    // mask: keys past T give p = 0 (-inf), other masked keys -1e30
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int qi = q0 + rg + 16 * i;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kj = k0 + cg + 8 * j;
-        const bool ok = kj < seq && kj <= qi && qi - kj < window;
-        ps[(rg + 16 * i) * (kBk + 1) + cg + 8 * j] = ok ? sc[i][j] : kNegInf;
+        float x = sc[i][j];
+        if (kj >= kv_len) {
+          x = no_key();
+        } else {
+          bool ok = !p.causal || (kj <= qi && qi - kj < window);
+          if (sb != nullptr) {
+            const int sq = qseg[rg + 16 * i];
+            ok = ok && sq > 0 && sq == kseg[cg + 8 * j];
+          }
+          if (!ok) x = kNegInf;
+        }
+        ps[(rg + 16 * i) * (kBk + 1) + cg + 8 * j] = x;
       }
     }
     __syncthreads();
@@ -285,8 +372,7 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* o,
-           long long bsz, long long seq, long long heads, long long kv_heads,
-           long long hd, long long window, cudaStream_t st) {
+           const int* seg, long long bsz, const Dims& p, cudaStream_t st) {
   auto kern = swa_attention_kernel<T, HD>;
   const size_t smem = Smem<HD>::kBytes;
   if (smem > 48 * 1024) {
@@ -294,32 +380,21 @@ int launch(const void* q, const void* k, const void* v, void* o,
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const dim3 grid((unsigned)((seq + kBq - 1) / kBq), (unsigned)heads,
+  const dim3 grid((unsigned)((p.seq + kBq - 1) / kBq), (unsigned)p.heads,
                   (unsigned)bsz);
-  const float scale = 1.0f / sqrtf((float)hd);
-  kern<<<grid, kThreads, smem, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, (int)seq, (int)heads,
-      (int)kv_heads, (int)hd, (int)window, scale);
+  const float scale = 1.0f / sqrtf((float)p.hd);
+  kern<<<grid, kThreads, smem, st>>>((const T*)q, (const T*)k, (const T*)v,
+                                     (T*)o, seg, p, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o,
-             long long bsz, long long seq, long long heads,
-             long long kv_heads, long long hd, long long window,
-             cudaStream_t st) {
-  if (hd <= 32)
-    return launch<T, 32>(q, k, v, o, bsz, seq, heads, kv_heads, hd, window,
-                         st);
-  if (hd <= 64)
-    return launch<T, 64>(q, k, v, o, bsz, seq, heads, kv_heads, hd, window,
-                         st);
-  if (hd <= 128)
-    return launch<T, 128>(q, k, v, o, bsz, seq, heads, kv_heads, hd,
-                          window, st);
-  if (hd <= 256)
-    return launch<T, 256>(q, k, v, o, bsz, seq, heads, kv_heads, hd,
-                          window, st);
+             const int* seg, long long bsz, const Dims& p, cudaStream_t st) {
+  if (p.hd <= 32) return launch<T, 32>(q, k, v, o, seg, bsz, p, st);
+  if (p.hd <= 64) return launch<T, 64>(q, k, v, o, seg, bsz, p, st);
+  if (p.hd <= 128) return launch<T, 128>(q, k, v, o, seg, bsz, p, st);
+  if (p.hd <= 256) return launch<T, 256>(q, k, v, o, seg, bsz, p, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -335,12 +410,14 @@ constexpr int kBq = 16 * kWarps;   // queries per block, 16 rows a warp
 constexpr int kBk = 64;            // keys per kv tile
 constexpr int kNb = kBk / 8;       // 8-key column blocks of a score tile
 
-template <int HD>
+template <int HD, bool SEG>
 struct Smem {                      // sizes in bf16 elements
   static constexpr int kQ = kBq * HD;
   static constexpr int kTile = kBk * HD;
+  // the Q, K and V tiles, then (with segments) the kv tile's kBk ids
   static constexpr size_t kBytes = (size_t)(kQ + 2 * kTile) *
-                                   sizeof(__nv_bfloat16);
+                                   sizeof(__nv_bfloat16) +
+                                   (SEG ? kBk * sizeof(int) : 0);
 };
 
 // Element offset of (row, col) in a tile of rows of HD bf16 whose 16-byte
@@ -440,20 +517,26 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
   }
 }
 
-template <int HD>
+// CAUSAL and SEG are compile-time, so the causal path without segments
+// (every attention prefill but the encoder's, cross attention's and packed
+// training's) compiles to the kernel without the other masks' code.
+template <int HD, bool CAUSAL, bool SEG>
 __global__ void __launch_bounds__(kThreads, 2)
     swa_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
                             const __nv_bfloat16* __restrict__ k,
                             const __nv_bfloat16* __restrict__ v,
-                            __nv_bfloat16* __restrict__ o, int seq,
-                            int heads, int kv_heads, int hd, int window,
+                            __nv_bfloat16* __restrict__ o,
+                            const int* __restrict__ seg, Dims p,
                             float scale_log2, int vec) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
+  using Sm = Smem<HD, SEG>;
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* ks = qs + Smem<HD>::kQ;            // [kBk][HD]
-  __nv_bfloat16* vs = ks + Smem<HD>::kTile;         // [kBk][HD]
+  __nv_bfloat16* ks = qs + Sm::kQ;                  // [kBk][HD]
+  __nv_bfloat16* vs = ks + Sm::kTile;               // [kBk][HD]
+  int* kseg = reinterpret_cast<int*>(vs + Sm::kTile);   // [kBk], SEG only
   constexpr int kD = HD / 8;       // 8-dim column blocks of the output
 
+  const int seq = p.seq, kv_len = p.kv_len, hd = p.hd, window = p.window;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tig = lane & 3;
@@ -462,25 +545,61 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int nq = (seq + kBq - 1) / kBq;
   const int rows = (int)gridDim.x / nq;             // heads * batch rows
   const int q0 = (nq - 1 - (int)blockIdx.x / rows) * kBq;
-  const int h = (int)blockIdx.x % rows % heads;
-  const size_t b = (size_t)((int)blockIdx.x % rows / heads);
-  const int kh = h / (heads / kv_heads);
-  const size_t q_stride = (size_t)heads * hd;      // one position of q, o
-  const size_t kv_stride = (size_t)kv_heads * hd;  // one position of k, v
+  const int h = (int)blockIdx.x % rows % p.heads;
+  const size_t b = (size_t)((int)blockIdx.x % rows / p.heads);
+  const int kh = h / (p.heads / p.kv_heads);
+  const size_t q_stride = (size_t)p.heads * hd;      // one position of q, o
+  const size_t kv_stride = (size_t)p.kv_heads * hd;  // one position of k, v
   const __nv_bfloat16* qb = q + b * (size_t)seq * q_stride + (size_t)h * hd;
-  const __nv_bfloat16* kb = k + b * (size_t)seq * kv_stride +
+  const __nv_bfloat16* kb = k + b * (size_t)kv_len * kv_stride +
                             (size_t)kh * hd;
-  const __nv_bfloat16* vb = v + b * (size_t)seq * kv_stride +
+  const __nv_bfloat16* vb = v + b * (size_t)kv_len * kv_stride +
                             (size_t)kh * hd;
   __nv_bfloat16* ob = o + b * (size_t)seq * q_stride + (size_t)h * hd;
+  const int* sb = SEG ? seg + b * (size_t)seq : nullptr;
+  const int row = q0 + warp * 16 + g;   // this thread's rows: row, row + 8
 
-  const int q_last = min(q0 + kBq, seq) - 1;
-  const int t_first = max(0, q0 - window + 1) / kBk;
-  const int t_last = q_last / kBk;
+  // Segments.  This thread's two rows' ids (rows past S take the tile's
+  // first id); the tile holds a row of segment <= 0 (has_pad), or one
+  // segment > 0 in every row (q_uni: then a kv tile whose keys are all of
+  // that segment needs no segment mask).  A tile with a padding row
+  // visits every key: the row's scores are all -1e30, so each key's p is
+  // 1 and the row takes the mean of V over T.
+  int sq[2] = {1, 1};
+  int seg0 = 1;
+  bool has_pad = false, q_uni = false;
+  if constexpr (SEG) {
+    seg0 = sb[q0];
+    bool pad = false, same = true;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      sq[r] = row + 8 * r < seq ? sb[row + 8 * r] : seg0;
+      pad = pad || sq[r] <= 0;
+      same = same && sq[r] == seg0;
+    }
+    has_pad = __syncthreads_or(pad);
+    q_uni = __syncthreads_and(same) && seg0 > 0;
+  }
+
+  const int nkv = (kv_len + kBk - 1) / kBk;
+  const bool all_keys = !CAUSAL || has_pad;
+  const int t_first = all_keys ? 0 : max(0, q0 - window + 1) / kBk;
+  const int t_last = all_keys ? nkv - 1 : (min(q0 + kBq, seq) - 1) / kBk;
+
+  // kv tile t's segment ids into kseg (keys take segments[:, :T], T <= S;
+  // keys past T take -1); returns whether this thread's key is of the
+  // query tile's one segment (true for threads that load no key)
+  auto load_kseg = [&](int t) {
+    if (!SEG || tid >= kBk) return true;
+    const int j = t * kBk + tid;
+    kseg[tid] = j < kv_len ? sb[j] : -1;
+    return j < kv_len && sb[j] == seg0;
+  };
 
   load_tile<HD, kBq>(qs, qb, q_stride, q0, seq, hd, vec, tid);
-  load_tile<HD, kBk>(ks, kb, kv_stride, t_first * kBk, seq, hd, vec, tid);
+  load_tile<HD, kBk>(ks, kb, kv_stride, t_first * kBk, kv_len, hd, vec, tid);
   cp_async_commit();
+  bool key_uni = load_kseg(t_first);
 
   float acc[kD][4];
 #pragma unroll
@@ -488,7 +607,6 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[d][e] = 0.0f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
-  const int row = q0 + warp * 16 + g;   // this thread's rows: row, row + 8
 
   // This lane's ldmatrix row addresses (bytes in shared memory).  Every
   // row it names has row % 8 == lane % 8, so chunk 8u + w of a row sits at
@@ -514,10 +632,15 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   for (int t = t_first; t <= t_last; ++t) {
     // K_t has landed and every warp is done with V_{t-1}: V_t's copy
-    // runs under Q K_t^T and the softmax
+    // runs under Q K_t^T and the softmax.  With segments the barrier also
+    // finds whether tile t's keys and the query tile share one segment.
     cp_async_wait<0>();
-    __syncthreads();
-    load_tile<HD, kBk>(vs, vb, kv_stride, t * kBk, seq, hd, vec, tid);
+    bool seg_mask = false;
+    if constexpr (SEG)
+      seg_mask = !(__syncthreads_and(key_uni) && q_uni);
+    else
+      __syncthreads();
+    load_tile<HD, kBk>(vs, vb, kv_stride, t * kBk, kv_len, hd, vec, tid);
     cp_async_commit();
 
     // S = Q K^T: this warp's 16 rows x kBk keys, kNb blocks of 8 keys
@@ -540,19 +663,35 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
 
     // scale; mask only the tiles that cross the diagonal or the window's
-    // lower edge.  Fragment element e: row + 8 * (e / 2), key
-    // k0 + 8n + 2 tig + e % 2.
+    // lower edge (causal; the ragged last tile is one of them), hold keys
+    // past T (not causal), or mix segments.  Fragment element e: row + 8 *
+    // (e / 2), key k0 + 8n + 2 tig + e % 2.  A key past T scores -inf (p =
+    // 0: it never counts, not even in a padding row), another masked key
+    // -1e30.  Causal without segments, a key past T = S lies past every
+    // row's diagonal and the row's own key, so -1e30 gives it p = 0.
     const int k0 = t * kBk;
-    const bool edge = k0 + kBk - 1 > q0 || q0 + kBq - 1 - k0 >= window;
+    const bool edge = CAUSAL ? (k0 + kBk - 1 > q0 ||
+                                q0 + kBq - 1 - k0 >= window)
+                             : k0 + kBk > kv_len;
 #pragma unroll
     for (int n = 0; n < kNb; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float x = __fmul_rn(s[n][e], scale_log2);
-        if (edge) {
+        if (edge || seg_mask) {
           const int i = row + (e >> 1) * 8;
-          const int j = k0 + n * 8 + tig * 2 + (e & 1);
-          if (j > i || i - j >= window) x = kNegInf;
+          const int c = n * 8 + tig * 2 + (e & 1);
+          const int j = k0 + c;
+          if constexpr (CAUSAL && !SEG) {
+            if (j > i || i - j >= window) x = kNegInf;
+          } else {
+            const int si = sq[e >> 1];
+            if (j >= kv_len)
+              x = no_key();
+            else if ((CAUSAL && (j > i || i - j >= window)) ||
+                     (SEG && seg_mask && !(si > 0 && si == kseg[c])))
+              x = kNegInf;
+          }
         }
         s[n][e] = x;
       }
@@ -591,9 +730,10 @@ __global__ void __launch_bounds__(kThreads, 2)
     cp_async_wait<0>();
     __syncthreads();
     if (t < t_last) {
-      load_tile<HD, kBk>(ks, kb, kv_stride, (t + 1) * kBk, seq, hd, vec,
+      load_tile<HD, kBk>(ks, kb, kv_stride, (t + 1) * kBk, kv_len, hd, vec,
                          tid);
       cp_async_commit();
+      key_uni = load_kseg(t + 1);   // every warp has masked tile t
     }
 
     // O += P V: P's f32 fragments of keys 16kk.. are the A fragment
@@ -653,44 +793,45 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-template <int HD>
+template <int HD, bool CAUSAL, bool SEG>
 int launch(const void* q, const void* k, const void* v, void* o,
-           long long bsz, long long seq, long long heads, long long kv_heads,
-           long long hd, long long window, cudaStream_t st) {
-  auto kern = swa_attention_tc_kernel<HD>;
-  const size_t smem = Smem<HD>::kBytes;
+           const int* seg, long long bsz, const Dims& p, cudaStream_t st) {
+  auto kern = swa_attention_tc_kernel<HD, CAUSAL, SEG>;
+  const size_t smem = Smem<HD, SEG>::kBytes;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const int vec = hd % 8 == 0 &&
+  const int vec = p.hd % 8 == 0 &&
                   (((size_t)q | (size_t)k | (size_t)v | (size_t)o) & 15) == 0;
-  const long long blocks = (seq + kBq - 1) / kBq * heads * bsz;
+  const long long blocks = (p.seq + kBq - 1) / kBq * p.heads * bsz;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)blocks);
   // the softmax runs in base 2: scores times log2(e) / sqrt(hd)
-  const float scale_log2 = 1.4426950408889634f / sqrtf((float)hd);
+  const float scale_log2 = 1.4426950408889634f / sqrtf((float)p.hd);
   kern<<<grid, kThreads, smem, st>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, (int)seq, (int)heads,
-      (int)kv_heads, (int)hd, (int)window, scale_log2, vec);
+      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, seg, p, scale_log2, vec);
   return (int)cudaGetLastError();
 }
 
+template <int HD>
+int dispatch_masks(const void* q, const void* k, const void* v, void* o,
+                   const int* seg, long long bsz, const Dims& p,
+                   cudaStream_t st) {
+  if (seg != nullptr)
+    return p.causal ? launch<HD, true, true>(q, k, v, o, seg, bsz, p, st)
+                    : launch<HD, false, true>(q, k, v, o, seg, bsz, p, st);
+  return p.causal ? launch<HD, true, false>(q, k, v, o, seg, bsz, p, st)
+                  : launch<HD, false, false>(q, k, v, o, seg, bsz, p, st);
+}
+
 int dispatch(const void* q, const void* k, const void* v, void* o,
-             long long bsz, long long seq, long long heads,
-             long long kv_heads, long long hd, long long window,
-             cudaStream_t st) {
-  if (hd <= 64)
-    return launch<64>(q, k, v, o, bsz, seq, heads, kv_heads, hd, window,
-                      st);
-  if (hd <= 128)
-    return launch<128>(q, k, v, o, bsz, seq, heads, kv_heads, hd, window,
-                       st);
-  if (hd <= 256)
-    return launch<256>(q, k, v, o, bsz, seq, heads, kv_heads, hd, window,
-                       st);
+             const int* seg, long long bsz, const Dims& p, cudaStream_t st) {
+  if (p.hd <= 64) return dispatch_masks<64>(q, k, v, o, seg, bsz, p, st);
+  if (p.hd <= 128) return dispatch_masks<128>(q, k, v, o, seg, bsz, p, st);
+  if (p.hd <= 256) return dispatch_masks<256>(q, k, v, o, seg, bsz, p, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -698,22 +839,25 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// q, o: (bsz, seq, heads, hd); k, v: (bsz, seq, kv_heads, hd); contiguous,
-// all float32 (dtype 0: the CUDA-core kernel) or all bfloat16 (dtype 1:
-// the tensor-core kernel).  bsz and heads in [1, 65535], seq >= 1,
-// kv_heads divides heads, 1 <= hd <= 256, 1 <= window <= seq.  Returns
-// cudaGetLastError() (cudaErrorInvalidValue for another dtype or hd).
+// q, o: (bsz, seq, heads, hd); k, v: (bsz, kv_len, kv_heads, hd);
+// contiguous, all float32 (dtype 0: the CUDA-core kernel) or all
+// bfloat16 (dtype 1: the tensor-core kernel).  segments: nullptr or
+// (bsz, seq) int32.  bsz and heads in [1, 65535], seq >= 1, kv_len >= 1,
+// kv_heads divides heads, 1 <= hd <= 256; causal: kv_len == seq and
+// 1 <= window <= seq; not causal: window ignored; with segments kv_len <=
+// seq.  Returns cudaGetLastError() (cudaErrorInvalidValue for another
+// dtype or hd).
 extern "C" int swa_attention(const void* q, const void* k, const void* v,
-                             void* o, long long bsz, long long seq,
+                             void* o, const void* segments, long long bsz,
+                             long long seq, long long kv_len,
                              long long heads, long long kv_heads,
-                             long long hd, long long window, int dtype,
-                             void* stream) {
+                             long long hd, long long window, int causal,
+                             int dtype, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0)
-    return dispatch<float>(q, k, v, o, bsz, seq, heads, kv_heads, hd,
-                           window, st);
-  if (dtype == 1)
-    return tc::dispatch(q, k, v, o, bsz, seq, heads, kv_heads, hd, window,
-                        st);
+  const Dims p{(int)seq, (int)kv_len, (int)heads, (int)kv_heads, (int)hd,
+               causal ? (int)window : (int)kv_len, causal ? 1 : 0};
+  const int* seg = (const int*)segments;
+  if (dtype == 0) return dispatch<float>(q, k, v, o, seg, bsz, p, st);
+  if (dtype == 1) return tc::dispatch(q, k, v, o, seg, bsz, p, st);
   return (int)cudaErrorInvalidValue;
 }

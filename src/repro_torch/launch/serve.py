@@ -8,16 +8,19 @@
       --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch granite-moe-3b-a800m --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch seamless-m4t-large-v2 --reduced --device cpu
 
-Ported families: falcon-mamba-7b, recurrentgemma-9b, the dense configs
-(the qwen2s and chatglm3-6b with its 2-D RoPE), the MoE configs
-(granite-moe-3b-a800m, llama4-scout-17b-a16e) and qwen2-vl-7b (M-RoPE
-and a vision prefix); seamless-m4t-large-v2 raises naming its ROADMAP
-item.  As in the JAX package, a vision config's prompts follow a zero
-prefix of ``modality_tokens`` embeddings, an M-RoPE config takes the
-(3, B, P + S) positions, and the cache holds S + gen positions (the
-prompt's, not the prefix's: a prefixed prefill keeps its last S + gen
-positions).
+Every config serves: falcon-mamba-7b, recurrentgemma-9b, the dense
+configs (the qwen2s and chatglm3-6b with its 2-D RoPE), the MoE configs
+(granite-moe-3b-a800m, llama4-scout-17b-a16e), qwen2-vl-7b (M-RoPE and a
+vision prefix) and the enc-dec seamless-m4t-large-v2.  As in the JAX
+package, a vision config's prompts follow a zero prefix of
+``modality_tokens`` embeddings, an M-RoPE config takes the (3, B, P + S)
+positions, an enc-dec config's encoder reads zero frame embeddings of
+length min(max_encoder_len, S), and the cache holds S + gen positions
+(the prompt's, not the prefix's: a prefixed prefill keeps its last S +
+gen positions).
 ``--window`` caps every attention cache at that many positions and
 makes the dense layers attend within it (recurrentgemma's local layers
 keep their own window of ``cfg.window`` either way).
@@ -53,8 +56,9 @@ def _greedy(logits):
 
 def serve_batch(cfg, prompts):
     """The prefill batch of ``prompts`` (B, S): a zero modality prefix
-    (B, ``modality_tokens``, d) in bfloat16 for a vision config, and the
-    (3, B, P + S) positions for M-RoPE."""
+    (B, ``modality_tokens``, d) in bfloat16 for a vision config, the
+    (3, B, P + S) positions for M-RoPE, and zero encoder frames (B,
+    min(max_encoder_len, S), d) in bfloat16 for an enc-dec config."""
     b, s = prompts.shape
     batch = {"tokens": prompts}
     total = s
@@ -67,6 +71,10 @@ def serve_batch(cfg, prompts):
         batch["positions"] = torch.arange(
             total, dtype=torch.int32, device=prompts.device).expand(
                 3, b, total)
+    if cfg.is_encdec:
+        batch["enc_embeds"] = torch.zeros(
+            (b, min(cfg.max_encoder_len, s), cfg.d_model),
+            dtype=torch.bfloat16, device=prompts.device)
     return batch
 
 

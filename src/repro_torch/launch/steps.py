@@ -83,8 +83,9 @@ def _split_leaf(leaf, n: int):
 def _split(batch: dict, n: int) -> list[dict]:
     """The batch cut into n parts along its batch axis, as the JAX step
     cuts it over pods and over microbatches: axis 0 of ``tokens``,
-    ``embeds`` and every other leaf, axis 1 of M-RoPE's (3, B, S)
-    ``positions``."""
+    ``embeds``, ``enc_embeds``, a packed batch's ``segments``,
+    ``positions`` and ``loss_mask``, and every other leaf; axis 1 of
+    M-RoPE's (3, B, S) ``positions``."""
     parts = {}
     for key, leaf in batch.items():
         if key == "positions" and leaf.dim() == 3:
@@ -99,8 +100,9 @@ def build_train_step(model: Model, settings: TrainSettings,
                      schedule: Schedule | None = None):
     """Returns ``step(state, batch) -> (state, metrics)``, one pod round.
     The pod count is the leading axis of ``state["v"]``; the batch (a
-    dict: ``tokens``, and ``embeds`` and ``positions`` where the model
-    takes them) splits over the pods along its batch axis (``_split``),
+    dict: ``tokens``, and ``embeds``, ``positions``, ``enc_embeds`` or a
+    packed batch's ``segments`` and ``loss_mask`` where the model takes
+    them) splits over the pods along its batch axis (``_split``),
     and each pod's part over the microbatches.  The loss is ``lm_loss``:
     the cross entropy plus 0.01 times the MoE router loss.  ``state`` is
     updated in place and returned; metrics: ``loss`` (the pods' mean),

@@ -19,6 +19,12 @@ or, ending in ``.npz``, one file; a run resumes from what it finds
 there.  Checkpoints are the JAX package's format.  ``main`` prints the
 JAX CLI's lines and returns (first, last): the mean loss of the first
 and of the last five steps.
+
+An enc-dec config (seamless-m4t-large-v2) trains on the task's tokens as
+decoder targets and on encoder frames ``enc_embeds`` (B, min(
+max_encoder_len, --seq), d) ~ 0.02 N(0, 1) in bfloat16, drawn for each
+step from a numpy stream of (seed, step) (``encoder_frames``).  The JAX
+CLI passes tokens alone and fails on such a config.
 """
 from __future__ import annotations
 
@@ -34,9 +40,21 @@ from ..checkpoint import CheckpointManager, load_pytree, save_pytree
 from ..configs import get_config
 from ..core.schedules import Schedule
 from ..core.types import tree_leaves
-from ..data.synthetic import LMTask
+from ..data.synthetic import LMTask, _fold
 from ..models.api import build_model
 from .steps import TrainSettings, build_train_step, init_train_state
+
+
+def encoder_frames(cfg, batch: int, seq: int, seed: int, step: int,
+                   device):
+    """Step ``step``'s encoder input for an enc-dec config: (batch,
+    min(max_encoder_len, seq), d) ~ 0.02 N(0, 1), bfloat16, from the
+    stream ``_fold(seed, 303, step)``."""
+    rng = _fold(seed, 303, step)
+    frames = rng.normal(size=(batch, min(cfg.max_encoder_len, seq),
+                              cfg.d_model)) * 0.02
+    return torch.as_tensor(frames.astype(np.float32),
+                           device=device).to(torch.bfloat16)
 
 
 def main(argv=None):
@@ -106,6 +124,9 @@ def main(argv=None):
     saved = None
     for i in range(start, args.steps):
         batch = {"tokens": task.batch(0, i)}
+        if cfg.is_encdec:
+            batch["enc_embeds"] = encoder_frames(cfg, args.batch, args.seq,
+                                                 args.seed, i, dev)
         state, metrics = step(state, batch)
         losses.append(float(metrics["loss"]))
         if (i + 1) % args.log_every == 0 or i + 1 == args.steps:

@@ -73,7 +73,9 @@ class Model:
         return decode_step(params, self.cfg, token, cache, spec, self.dtype)
 
     def init_cache(self, batch_size: int, spec: CacheSpec, device="cuda"):
-        return init_cache(self.cfg, batch_size, spec, self.dtype, device)
+        enc_len = self.cfg.max_encoder_len if self.cfg.is_encdec else 0
+        return init_cache(self.cfg, batch_size, spec, self.dtype, device,
+                          enc_len)
 
     # -- concrete batches ----------------------------------------------------
     def make_batch(self, seq_len: int, batch_size: int, seed: int = 0,
@@ -81,13 +83,11 @@ class Model:
         """A batch from the JAX package's numpy stream, drawn in its
         order, so the same seed gives the same batch: the tokens (B, S -
         P), then for a vision config the modality prefix ``embeds`` (B,
-        P, d) ~ 0.02 N(0, 1) in bfloat16 (P = ``modality_tokens``), and
-        for M-RoPE the (3, B, S) positions.  The encoder input waits for
-        the enc-dec family (ROADMAP A7(d)(iv))."""
+        P, d) ~ 0.02 N(0, 1) in bfloat16 (P = ``modality_tokens``), for
+        M-RoPE the (3, B, S) positions, and for an enc-dec config the
+        encoder's frames ``enc_embeds`` (B, min(max_encoder_len, S), d)
+        ~ 0.02 N(0, 1) in bfloat16."""
         cfg = self.cfg
-        if cfg.is_encdec:
-            raise NotImplementedError(f"{cfg.name}: the enc-dec family is "
-                                      f"not ported yet: ROADMAP A7(d)(iv)")
         rng = np.random.default_rng(seed)
         p = cfg.modality_tokens if cfg.modality == "vision" else 0
         tokens = rng.integers(0, cfg.vocab_size,
@@ -102,6 +102,11 @@ class Model:
             batch["positions"] = torch.arange(
                 seq_len, dtype=torch.int32, device=device).expand(
                     3, batch_size, seq_len).clone()
+        if cfg.is_encdec:
+            enc = min(cfg.max_encoder_len, seq_len)
+            frames = rng.normal(size=(batch_size, enc, cfg.d_model)) * 0.02
+            batch["enc_embeds"] = torch.as_tensor(
+                frames.astype(np.float32), device=device).to(torch.bfloat16)
         return batch
 
 
@@ -133,7 +138,10 @@ class ModelGradFn:
     own leaves (float32 at the master), so each gradient is the float32
     widening of a bfloat16-rounded one wherever the forward casts a leaf,
     as ``jax.grad`` of float32 parameters through the JAX package's
-    bfloat16 forward gives it.
+    bfloat16 forward gives it.  Tokens alone cannot feed an enc-dec
+    config's encoder (the JAX package's ``ModelGradFn`` fails on one at
+    its first gradient): the constructor refuses such a config with a
+    ValueError.
     """
 
     def __init__(self, config_name: str, *, reduced: bool = True,
@@ -147,6 +155,10 @@ class ModelGradFn:
             raise NotImplementedError(
                 f"ModelGradFn runs on one device; a per-worker mesh "
                 f"{self.mesh_shape} is not ported yet: ROADMAP A8")
+        if self.build_config().is_encdec:
+            raise ValueError(f"{self.config_name} is an enc-dec config: "
+                             f"the lm preset's token batches carry no "
+                             f"encoder input")
         self._grad = None
 
     def __getstate__(self):

@@ -1,16 +1,21 @@
-"""GQA attention: the sliding-window prefill path, the unified ring-buffer
-KV-cache decode path and RoPE.
+"""GQA attention: the flash-attention prefill path (causal with or
+without a sliding window, non-causal, cross attention, packed segments),
+the unified ring-buffer KV-cache decode path and RoPE.
 
-``flash_attention`` is ported for causal attention without segments:
-with a sliding window (recurrentgemma's ``attn_local``) and without one
-(the dense ``attn`` kind), which is the same function with a window of
-S.  It goes through ``kernels.swa_attention.swa_attention`` on every
-device (the CUDA kernel on the card, its plain version on the CPU),
-where the JAX package runs its chunked ``jnp`` flash recurrence and
-names the Pallas kernel as the TPU route.  The other cases raise,
-naming the ROADMAP item that brings them: non-causal attention and
-``cross_attention`` (the enc-dec family, A7(d)(iv)) and ``segments``
-(packed sequences, A7(e)).
+``flash_attention`` goes through ``kernels.swa_attention.swa_attention``
+on every device (the CUDA kernel on the card, its plain version on the
+CPU), where the JAX package runs its chunked ``jnp`` flash recurrence and
+names the Pallas kernel as the TPU route for the windowed case.  Dense
+causal attention (the ``attn`` kind) is the windowed function with a
+window of S; the encoder's ``attn_bidir`` and ``cross_attention`` (queries
+over the encoder's T frames) are its non-causal case; ``segments`` (B, S)
+confine each query to its own packed document, a segment-0 (padding) row
+taking the mean of V over every key, as the JAX recurrence gives it.
+
+``_project_qkv`` with ``x_kv`` (cross attention) casts the weights to the
+query side's type and computes K and V in the wider of the two types, as
+JAX's ``einsum`` promotes a bfloat16 encoder output against float32
+weights (an exact cast).
 
 ``decode_attention`` is plain PyTorch (einsums in the JAX package, no
 Pallas kernel there).  With ``CacheSpec(quant=True)`` the cache holds
@@ -44,10 +49,6 @@ class CacheSpec:
     quant: bool = False         # int8 KV cache (per-position/head scales)
 
 
-def _unported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP {item}")
-
-
 # ---------------------------------------------------------------------------
 # params
 # ---------------------------------------------------------------------------
@@ -78,11 +79,16 @@ def _proj(x, w):
 
 
 def _project_qkv(params, x, x_kv=None):
-    if x_kv is not None:
-        raise _unported("cross-attention", "A7(d)(iv), the enc-dec family")
+    """q from x; k, v from ``x_kv`` (cross attention) or x.  The weights
+    are cast to x's type; K and V take the wider of x's and x_kv's types
+    (JAX's einsum promotion)."""
+    if x_kv is None:
+        x_kv = x
+    else:
+        x_kv = x_kv.to(torch.promote_types(x.dtype, x_kv.dtype))
     q = _proj(x, params["wq"])
-    k = _proj(x, params["wk"])
-    v = _proj(x, params["wv"])
+    k = _proj(x_kv, params["wk"].to(x.dtype))
+    v = _proj(x_kv, params["wv"].to(x.dtype))
     if "bq" in params:
         q = q + params["bq"].to(x.dtype)
         k = k + params["bk"].to(x.dtype)
@@ -116,24 +122,22 @@ def attention_block_output(params, attn_out, x_dtype):
 # flash attention (train / prefill)
 # ---------------------------------------------------------------------------
 def flash_attention(q, k, v, *, causal=True, window=None, segments=None):
-    """q: (B,S,H,hd); k, v: (B,S,K,hd) with H = K*G.  Returns (B,S,H,hd).
+    """q: (B,S,H,hd); k, v: (B,T,K,hd) with H = K*G.  Returns (B,S,H,hd).
 
-    Causal attention without segments is ported; it is
-    ``swa_attention``'s function, with a window of S when ``window`` is
-    None (keys in (i - S, i] are every key up to i)."""
+    ``swa_attention``'s function: causal (T == S) within ``window``, or
+    up to each query when it is None; non-causal (no window) over all T
+    keys; ``segments`` (B,S) ints confine attention to each packed
+    document (0 = padding, attends nowhere)."""
     if segments is not None:
-        raise _unported("attention over packed segments", "A7(e)")
-    if not causal:
-        raise _unported("non-causal attention",
-                        "A7(d)(iv), the enc-dec family")
-    if window is None:
-        window = max(q.shape[1], 1)
+        segments = segments.to(device=q.device,
+                               dtype=torch.int32).contiguous()
     return swa_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                         int(window))
+                         window, causal=causal, segments=segments)
 
 
 def cross_attention(q, k, v):
-    raise _unported("cross-attention", "A7(d)(iv), the enc-dec family")
+    """Non-causal attention against a fixed (encoder) memory."""
+    return flash_attention(q, k, v, causal=False, window=None)
 
 
 # ---------------------------------------------------------------------------

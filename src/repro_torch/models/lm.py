@@ -1,5 +1,5 @@
-"""Decoder-only LM over the block zoo: init, forward, loss, prefill,
-decode.
+"""Decoder-only LM and encoder-decoder assembly over the block zoo:
+init, forward, loss, prefill, decode.
 
 The parameter tree is the JAX package's: ``embed``, ``final_norm``,
 ``lm_head``, ``prologue`` (a list of blocks) and ``unit`` (one tree per
@@ -29,8 +29,17 @@ the token positions.  The MoE layers' router loss sums over the layers
 into ``forward``'s aux (each checkpointed unit repeat returns its own
 part).
 
-Not ported yet: the encoder (``init_lm`` raises for an enc-dec config,
-ROADMAP A7(d)(iv)).
+An enc-dec config (seamless-m4t-large-v2) adds ``params["encoder"]``:
+``{"unit": [attn_bidir blocks stacked (encoder_layers, ...)],
+"final_norm"}``, drawn after the decoder's leaves as the JAX package
+draws it.  ``_encode`` runs it over the batch's ``enc_embeds`` (B, Se, d)
+in bfloat16 whatever the model's type (the JAX package casts the frames
+to bfloat16, so a float32 model runs its encoder in bfloat16 too), with
+positions 0..Se-1 and no segments, each layer checkpointed as the
+decoder's unit repeats are; the decoder's ``attn_cross`` blocks attend
+over its output (``ctx["enc_out"]``), which the decode cache keeps as
+``enc_out``.  A batch's ``segments`` (B, S) confine the decoder's
+self-attention to each packed document.
 """
 from __future__ import annotations
 
@@ -49,14 +58,13 @@ from .common import dense_init, embed_init, rms_norm, softmax_xent_logits
 # params
 # ---------------------------------------------------------------------------
 def init_lm(gen, cfg: ArchConfig, device="cuda", dtype=torch.float32):
-    if cfg.is_encdec:
-        raise NotImplementedError("the enc-dec family is not ported yet: "
-                                  "ROADMAP A7(d)(iv)")
-    return {
+    def zeros():
+        return torch.zeros((cfg.d_model,), dtype=dtype, device=device)
+
+    params = {
         "embed": embed_init(gen, (cfg.vocab_size, cfg.d_model), dtype,
                             device),
-        "final_norm": torch.zeros((cfg.d_model,), dtype=dtype,
-                                  device=device),
+        "final_norm": zeros(),
         "lm_head": dense_init(gen, (cfg.d_model, cfg.vocab_size),
                               dtype=dtype, device=device),
         "prologue": [init_block(gen, cfg, kind, device, dtype)
@@ -65,6 +73,13 @@ def init_lm(gen, cfg: ArchConfig, device="cuda", dtype=torch.float32):
                                dtype)
                  for kind in cfg.pattern_unit],
     }
+    if cfg.is_encdec:
+        params["encoder"] = {
+            "unit": [_init_stacked(gen, cfg, "attn_bidir",
+                                   cfg.encoder_layers, device, dtype)],
+            "final_norm": zeros(),
+        }
+    return params
 
 
 def _init_stacked(gen, cfg, kind, repeats, device, dtype):
@@ -133,20 +148,22 @@ def _inputs(params, cfg: ArchConfig, batch, dtype):
 
 
 def _unit_loop(params_unit, x, cfg: ArchConfig, ctx, collect_cache=False,
-               caches=None):
-    """Run the repeated unit over its repeats.
+               caches=None, kinds=None, repeats=None):
+    """Run the repeated unit (the decoder's, or ``kinds`` over
+    ``repeats``: the encoder's) over its repeats.
 
     collect_cache: prefill mode, returns stacked caches.
     caches: decode mode, consumes and returns stacked caches.
     Otherwise the forward, each repeat checkpointed when autograd
     records.
     """
-    kinds = cfg.pattern_unit
+    kinds = cfg.pattern_unit if kinds is None else kinds
+    repeats = cfg.unit_repeats if repeats is None else repeats
     layers = [_layers(p) for p in params_unit]    # layers[j][r]
     if caches is not None:                       # ---- decode
         new = [[] for _ in kinds]
         cache_layers = [_layers(c) for c in caches]
-        for r in range(cfg.unit_repeats):
+        for r in range(repeats):
             for j, kind in enumerate(kinds):
                 x, c = decode_block(layers[j][r], x, kind, cfg,
                                     cache_layers[j][r], ctx)
@@ -161,7 +178,7 @@ def _unit_loop(params_unit, x, cfg: ArchConfig, ctx, collect_cache=False,
                 aux = aux + a
             return x, aux
         aux = 0.0
-        for r in range(cfg.unit_repeats):
+        for r in range(repeats):
             x, a = torch.utils.checkpoint.checkpoint(body, x, r,
                                                      use_reentrant=False)
             aux = aux + a
@@ -169,7 +186,7 @@ def _unit_loop(params_unit, x, cfg: ArchConfig, ctx, collect_cache=False,
 
     aux = 0.0
     out = [[] for _ in kinds]
-    for r in range(cfg.unit_repeats):
+    for r in range(repeats):
         for j, kind in enumerate(kinds):
             if collect_cache:                    # ---- prefill
                 x, a, cache = prefill_block(layers[j][r], x, kind, cfg, ctx)
@@ -180,17 +197,45 @@ def _unit_loop(params_unit, x, cfg: ArchConfig, ctx, collect_cache=False,
     return x, aux, ([_stack(cs) for cs in out] if collect_cache else None)
 
 
+# the encoder's type whatever the model's: the JAX package casts the
+# frames to bfloat16 (its lm.py:116)
+ENCODER_DTYPE = torch.bfloat16
+
+
+def _encode(params, cfg: ArchConfig, enc_embeds):
+    """The bidirectional encoder over precomputed frame embeddings
+    (B, Se, d), in ``ENCODER_DTYPE``, positions 0..Se-1, no segments;
+    its final RMS norm applied."""
+    x = enc_embeds.to(ENCODER_DTYPE)
+    ctx = {"positions": _default_positions(cfg, x.shape[0], x.shape[1],
+                                           device=x.device)}
+    enc = params["encoder"]
+    x, _, _ = _unit_loop(enc["unit"], x, cfg, ctx, kinds=("attn_bidir",),
+                         repeats=cfg.encoder_layers)
+    return rms_norm(x, enc["final_norm"])
+
+
+def _context(params, cfg: ArchConfig, batch, positions, **extra):
+    """The blocks' context: positions, the batch's encoder output for an
+    enc-dec config, and ``extra``."""
+    ctx = {"positions": positions, **extra}
+    if cfg.is_encdec:
+        ctx["enc_out"] = _encode(params, cfg, batch["enc_embeds"])
+    return ctx
+
+
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
 def forward(params, cfg: ArchConfig, batch, dtype=torch.bfloat16):
     """Full forward -> (logits (B,S,V), aux_loss).  batch: {"tokens"
     (B,S_tok) int}, optional "embeds" (B,P,d) modality prefix (S = P +
-    S_tok), "positions" ((B,S), or (3,B,S) for M-RoPE) and "segments"
-    (packed sequences, which attention refuses until A7(e)).  Each unit
-    repeat is checkpointed when autograd records."""
+    S_tok), "positions" ((B,S), or (3,B,S) for M-RoPE), "segments"
+    (B,S) (packed sequences) and, for an enc-dec config, "enc_embeds"
+    (B,Se,d).  Each unit repeat is checkpointed when autograd records."""
     x, positions = _inputs(params, cfg, batch, dtype)
-    ctx = {"positions": positions, "segments": batch.get("segments")}
+    ctx = _context(params, cfg, batch, positions,
+                   segments=batch.get("segments"))
     aux = 0.0
     for p, kind in zip(params["prologue"], cfg.pattern_prologue):
         x, a, _ = apply_block(p, x, kind, cfg, ctx)
@@ -229,7 +274,7 @@ def prefill(params, cfg: ArchConfig, batch, spec: CacheSpec,
     when the batch has one); returns (last_logits (B,1,V), cache), the
     cache's step ``t`` the prompt's whole length."""
     x, positions = _inputs(params, cfg, batch, dtype)
-    ctx = {"positions": positions, "spec": spec}
+    ctx = _context(params, cfg, batch, positions, spec=spec)
     caches = {"prologue": [], "unit": None}
     for p, kind in zip(params["prologue"], cfg.pattern_prologue):
         x, _, cache = prefill_block(p, x, kind, cfg, ctx)
@@ -240,25 +285,32 @@ def prefill(params, cfg: ArchConfig, batch, spec: CacheSpec,
     logits = x[:, -1:, :] @ params["lm_head"].to(x.dtype)
     caches["t"] = torch.tensor(x.shape[1], dtype=torch.int32,
                                device=x.device)
+    if cfg.is_encdec:
+        caches["enc_out"] = ctx["enc_out"]
     return logits, caches
 
 
 def init_cache(cfg: ArchConfig, batch_size: int, spec: CacheSpec,
-               dtype=torch.bfloat16, device="cuda"):
-    """Empty cache for decode-from-scratch (the enc-dec family's encoder
-    output waits for that family)."""
-    def stacked(kind):
-        one = init_block_cache(cfg, kind, batch_size, spec, dtype, device)
-        return tree_map(lambda l: l[None].expand(
-            (cfg.unit_repeats,) + tuple(l.shape)).clone(), one)
+               dtype=torch.bfloat16, device="cuda", enc_len: int = 0):
+    """Empty cache for decode-from-scratch; an enc-dec config's holds a
+    zero encoder output and cross K/V over ``enc_len`` positions."""
+    def one(kind):
+        return init_block_cache(cfg, kind, batch_size, spec, dtype, device,
+                                enc_len)
 
-    return {
-        "prologue": [init_block_cache(cfg, kind, batch_size, spec, dtype,
-                                      device)
-                     for kind in cfg.pattern_prologue],
+    def stacked(kind):
+        return tree_map(lambda l: l[None].expand(
+            (cfg.unit_repeats,) + tuple(l.shape)).clone(), one(kind))
+
+    caches = {
+        "prologue": [one(kind) for kind in cfg.pattern_prologue],
         "unit": [stacked(kind) for kind in cfg.pattern_unit],
         "t": torch.zeros((), dtype=torch.int32, device=device),
     }
+    if cfg.is_encdec:
+        caches["enc_out"] = torch.zeros((batch_size, enc_len, cfg.d_model),
+                                        dtype=dtype, device=device)
+    return caches
 
 
 def decode_step(params, cfg: ArchConfig, token, cache, spec: CacheSpec,
@@ -276,6 +328,8 @@ def decode_step(params, cfg: ArchConfig, token, cache, spec: CacheSpec,
         positions = positions[None].expand(3, b, 1)
     ctx = {"positions": positions, "t": t, "spec": spec}
     new_cache = {"prologue": [], "t": t + 1}
+    if cfg.is_encdec:        # the blocks read the cross caches
+        new_cache["enc_out"] = cache["enc_out"]
     for p, kind, c in zip(params["prologue"], cfg.pattern_prologue,
                           cache["prologue"]):
         x, c = decode_block(p, x, kind, cfg, c, ctx)

@@ -33,7 +33,9 @@ decode routes each slot's token alone (a group of one, as the JAX
 engine's ``vmap`` over slots does).  An M-RoPE config (qwen2-vl) prefills
 with the default (3, 1, bucket) positions and no vision prefix, as the
 JAX engine does, and decodes each slot at (3, slots, 1) positions from
-its own step.
+its own step.  An enc-dec config (seamless-m4t-large-v2) is refused
+with a ValueError: a request is a token prompt with no encoder input,
+and the JAX engine, which prefills ``{"tokens"}`` alone, fails on one.
 """
 from __future__ import annotations
 
@@ -101,6 +103,9 @@ class Engine:
     def __init__(self, model: Model, params, *, slots: int = 4,
                  capacity: int = 256, window: int | None = None,
                  prefill_buckets=(32, 64, 128, 256), eos: int | None = None):
+        if model.cfg.is_encdec:
+            raise ValueError(f"{model.cfg.name} is an enc-dec config: the "
+                             f"Engine's requests carry no encoder input")
         self.model = model
         self.params = params
         self.slots = slots

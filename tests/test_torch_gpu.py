@@ -521,6 +521,79 @@ def test_swa_attention_kernel_refuses_what_it_does_not_take(cuda):
         swa_attention(*big, 2)
 
 
+# the enc-dec family's and packed sequences' masks: (B, S, T, H, K, hd,
+# causal, window, segments)
+SWA_MASK_CASES = [
+    # seamless-m4t-large-v2: the encoder (non-causal, S == T), cross
+    # attention over 512 frames, a ragged T, the longest encoder output
+    (4, 512, 512, 16, 16, 64, False, None, False),
+    (4, 512, 1000, 16, 16, 64, False, None, False),
+    (1, 512, 4096, 16, 16, 64, False, None, False),
+    # T below and above S at odd lengths, GQA, hd no multiple of 8
+    (2, 77, 33, 4, 2, 64, False, None, False),
+    (2, 70, 131, 2, 1, 20, False, None, False),
+    # packed sequences: qwen2-1.5b causal, a sliding window, non-causal
+    # with T < S, all with padding rows
+    (4, 512, 512, 12, 2, 128, True, None, True),
+    (2, 300, 300, 4, 1, 256, True, 40, True),
+    (3, 200, 150, 4, 4, 64, False, None, True),
+    (2, 130, 130, 4, 2, 32, True, None, True)]
+
+
+def _segments(b, s, seed):
+    """A PackedLMTask batch's segment ids (documents of mean length s/4,
+    padding at the ends of rows), with the padding forced on."""
+    from repro_torch.data.packing import PackedLMTask
+    seg = PackedLMTask(seq_len=s, batch_size=b, mean_doc_len=max(s // 4, 4),
+                       seed=seed).batch(0, seed).segments.copy()
+    seg[:, -3:] = 0
+    return seg
+
+
+@pytest.mark.parametrize("b,s,t,h,kh,hd,causal,window,seg", SWA_MASK_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_swa_attention_kernel_masks_match_plain_version(
+        cuda, b, s, t, h, kh, hd, causal, window, seg, dtype):
+    """Non-causal attention over T keys and segment masks, against the
+    plain version with the tolerances above; a padding row takes the
+    mean of V over all T keys (keys past T in the last tile never
+    count)."""
+    rng = np.random.default_rng(s + t)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(device=cuda, dtype=dtype)
+        for shape in ((b, s, h, hd), (b, t, kh, hd), (b, t, kh, hd)))
+    segments = torch.from_numpy(_segments(b, s, s)).to(cuda) if seg \
+        else None
+    reset_launches()
+    out = swa_attention(q, k, v, window, causal=causal, segments=segments)
+    assert launches(["swa_attention"]) == {"swa_attention": 1}
+    assert out.dtype == dtype and out.shape == q.shape
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    ref = swa_attention_gqa(q, k, v, window, causal, segments)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    if seg:
+        pad = segments == 0
+        mean = v.float().mean(dim=1, keepdim=True).repeat_interleave(
+            h // kh, dim=2).expand(b, s, h, hd)
+        torch.testing.assert_close(out.float()[pad], mean[pad], rtol=tol,
+                                   atol=tol)
+
+
+def test_swa_attention_kernel_refuses_masks_no_block_asks_for(cuda):
+    q, k, v = _swa_inputs(1, 16, 4, 2, 32, torch.float32, 0, cuda)
+    seg = torch.ones((1, 16), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="as many keys"):
+        swa_attention(q, k[:, :8].contiguous(), v[:, :8].contiguous())
+    with pytest.raises(ValueError, match="window"):
+        swa_attention(q, k, v, 8, causal=False)
+    with pytest.raises(ValueError, match="segments"):
+        swa_attention(q, k, v, segments=seg[:, :8])
+    with pytest.raises(TypeError, match="int32"):
+        swa_attention(q, k, v, segments=seg.long())
+    with pytest.raises(TypeError, match="int32"):
+        swa_attention(q, k, v, segments=seg.cpu())
+
+
 # ---------------------------------------------------------------------------
 # gradients: kernel forward, the plain version's gradient backward
 # ---------------------------------------------------------------------------
@@ -577,3 +650,24 @@ def test_swa_attention_gradients_equal_plain_versions(cuda, dtype, window):
                  lambda q, k, v: swa_attention_gqa(q, k, v, window),
                  _swa_inputs(2, 130, 4, 2, 64, dtype, 7, cuda),
                  dict(rtol=tol, atol=tol))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mask", ["cross", "segments"])
+def test_swa_attention_mask_gradients_equal_plain_versions(cuda, dtype,
+                                                           mask):
+    """Cross attention over T != S keys and segment masks: the segments
+    ride along as a static argument and take no gradient."""
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    q, k, v = _swa_inputs(2, 130, 4, 2, 64, dtype, 8, cuda)
+    if mask == "cross":
+        k, v = (torch.cat([x, x[:, :50]], 1).contiguous() for x in (k, v))
+        kw = dict(causal=False)
+    else:
+        kw = dict(segments=torch.from_numpy(_segments(2, 130, 3)).to(cuda))
+    _check_grads("swa_attention",
+                 lambda q, k, v: swa_attention(q, k, v, **kw),
+                 lambda q, k, v: swa_attention_gqa(
+                     q, k, v, None, kw.get("causal", True),
+                     kw.get("segments")),
+                 [q, k, v], dict(rtol=tol, atol=tol))

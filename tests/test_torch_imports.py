@@ -86,6 +86,9 @@ NEW_IN_SLICE_10 = ("repro_torch.cluster.sharded",)
 # the process backend: shard servers and workers as spawned processes
 NEW_IN_SLICE_11 = ("repro_torch.cluster.procs",)
 
+# packed sequences
+NEW_IN_SLICE_13 = ("repro_torch.data.packing",)
+
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
@@ -97,7 +100,7 @@ def test_port_modules_import_no_jax_and_no_repro():
     assert "repro_torch.kernels.flat_update.ops" in mods
     for name in (NEW_IN_SLICE_2 + NEW_IN_SLICE_4 + NEW_IN_SLICE_5
                  + NEW_IN_SLICE_6 + NEW_IN_SLICE_9 + NEW_IN_SLICE_10
-                 + NEW_IN_SLICE_11):
+                 + NEW_IN_SLICE_11 + NEW_IN_SLICE_13):
         assert name in mods, name
     code = (
         "import importlib, json, sys\n"

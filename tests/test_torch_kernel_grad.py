@@ -177,11 +177,13 @@ def _lm_grads(arch, seq, via_function, monkeypatch):
     weights W from numpy: gradients of sum(logits * W)."""
     if via_function:
         def through(plain, static_argnums=()):
-            def call(*args):
+            def call(*args, **kw):
+                # keyword arguments (attention's causal flag and segments)
+                # follow the static positional ones, as the wrapper passes
                 tensors = [a for i, a in enumerate(args)
                            if i not in static_argnums]
                 static = [a for i, a in enumerate(args)
-                          if i in static_argnums]
+                          if i in static_argnums] + list(kw.values())
                 return _autograd.KernelFunction.apply(
                     plain, plain, tuple(static), *tensors)
             return call

@@ -174,11 +174,10 @@ def test_rglru_raises_naming_its_roadmap_items():
     """The RG-LRU stubs that raised naming A7 and B6 are gone (the block
     is ported; its parity tests are in test_torch_recurrentgemma.py): the
     three functions run and keep the JAX package's shapes and types.
-    What stays unported beside them still raises naming its item: the
-    enc-dec family's non-causal and cross attention (A7(d)(iv)) and
-    packed segments (A7(e)); the RoPE variants and the MoE layer, which
-    raised here until they were ported, run (their parity tests are in
-    test_torch_rope_variants.py and test_torch_moe.py)."""
+    What raised beside them runs too and keeps its shapes: the enc-dec
+    family's non-causal and cross attention and packed segments (their
+    parity tests are in test_torch_swa_attention.py), the RoPE variants
+    and the MoE layer (test_torch_rope_variants.py, test_torch_moe.py)."""
     gen = torch.Generator().manual_seed(0)
     p = init_rglru(gen, 32, 64, 4, device="cpu")
     assert p["w_a"].shape == (4, 16, 16) and p["lam"].shape == (64,)
@@ -189,13 +188,13 @@ def test_rglru_raises_naming_its_roadmap_items():
     from repro_torch.models.attention import cross_attention, flash_attention
     from repro_torch.models.common import rope_2d_partial, rope_mrope
     from repro_torch.models.mlp import apply_moe, init_moe
-    q = torch.zeros((1, 4, 2, 8))
-    with pytest.raises(NotImplementedError, match=r"A7\(d\)\(iv\)"):
-        flash_attention(q, q, q, causal=False)
-    with pytest.raises(NotImplementedError, match=r"A7\(d\)\(iv\)"):
-        cross_attention(q, q, q)
-    with pytest.raises(NotImplementedError, match=r"A7\(e\)"):
-        flash_attention(q, q, q, segments=torch.ones((1, 4)))
+    q = torch.randn((1, 4, 2, 8), generator=gen)
+    assert flash_attention(q, q, q, causal=False).shape == q.shape
+    mem = torch.randn((1, 7, 2, 8), generator=gen)
+    assert cross_attention(q, mem, mem).shape == q.shape
+    out = flash_attention(q, q, q, segments=torch.ones((1, 4)))
+    torch.testing.assert_close(out, flash_attention(q, q, q), rtol=0,
+                               atol=0)
     pos = torch.zeros((1, 4), dtype=torch.int32)
     assert rope_2d_partial(q, pos).shape == q.shape
     assert rope_mrope(q, pos[None].expand(3, 1, 4), (1, 1, 2)).shape == \
@@ -206,21 +205,25 @@ def test_rglru_raises_naming_its_roadmap_items():
 
 
 def test_unported_families_raise():
-    """Of the ten configs only the enc-dec one (seamless-m4t-large-v2)
-    still raises, naming A7(d)(iv): its ``init_lm``, its ``make_batch``
-    (the encoder input) and its block kinds.  granite-moe and qwen2-vl,
-    which raised here before they were ported, build and make their
-    batches."""
+    """None of the ten configs raises any more: the enc-dec one
+    (seamless-m4t-large-v2), which raised here naming A7(d)(iv), builds
+    its encoder, makes its batch with the encoder's frames and inits
+    both of its block kinds, with the JAX package's shapes (its parity
+    tests are in test_torch_encdec.py); granite-moe and qwen2-vl, which
+    raised here before they were ported, build and make their batches."""
     gen = torch.Generator().manual_seed(0)
     seamless = get_config("seamless-m4t-large-v2").reduced()
-    with pytest.raises(NotImplementedError, match=r"A7\(d\)\(iv\)"):
-        lm.init_lm(gen, seamless, "cpu")
-    with pytest.raises(NotImplementedError, match=r"A7\(d\)\(iv\)"):
-        build_model(seamless).make_batch(8, 1, device="cpu")
+    p = lm.init_lm(gen, seamless, "cpu")
+    assert p["encoder"]["unit"][0]["attn"]["wq"].shape == (2, 256, 4, 64)
+    assert p["unit"][0]["xattn"]["wk"].shape == (1, 256, 4, 64)
+    b = build_model(seamless).make_batch(8, 1, device="cpu")
+    assert b["enc_embeds"].shape == (1, 8, 256)
+    assert b["enc_embeds"].dtype == torch.bfloat16
     from repro_torch.models.blocks import init_block
-    for kind in ("attn_bidir", "attn_cross"):
-        with pytest.raises(NotImplementedError, match=r"A7\(d\)\(iv\)"):
-            init_block(gen, seamless, kind, "cpu")
+    for kind, keys in (("attn_bidir", {"ln1", "attn", "ln2", "mlp"}),
+                       ("attn_cross", {"ln1", "attn", "lnx", "xattn",
+                                       "ln2", "mlp"})):
+        assert set(init_block(gen, seamless, kind, "cpu")) == keys
     p = lm.init_lm(gen, get_config("granite-moe-3b-a800m").reduced(), "cpu")
     assert p["unit"][0]["moe"]["w_gate"].shape == (1, 4, 256, 512)
     b = build_model(get_config("qwen2-vl-7b").reduced()).make_batch(

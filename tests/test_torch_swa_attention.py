@@ -16,8 +16,17 @@
   last tile; the plain version takes any S).
 * The port's ``flash_attention`` is that function for causal windowed
   attention, and with no window that function at a window of S (the
-  dense ``attn`` kind); it raises, naming its ROADMAP item, for the
-  cases the port does not run yet.
+  dense ``attn`` kind).
+* The masks of the enc-dec family and of packed sequences, against the
+  JAX model's ``flash_attention`` at float32 within rtol 1e-5 / atol
+  1e-6 (sums in other orders), on shapes its chunking takes: non-causal
+  self-attention (the encoder), non-causal attention over T != S keys
+  (cross attention, T above and below S), and causal attention with the
+  segments of a ``PackedLMTask`` batch, padding rows included, whose
+  output is the mean of V over every key (the JAX recurrence's value);
+  the same with windows and GQA, and at bfloat16 within 0.05.  What no
+  block asks for is refused: causal attention with T != S, a window on
+  non-causal attention, segments of another shape or with T > S.
 * CPU tensors take the plain version and launch nothing; the CUDA-only
   wrapper refuses them.  The kernel itself is held against the plain
   version on a card by ``tests/test_torch_gpu.py`` and ``chip_smoke.py``.
@@ -34,8 +43,9 @@ from repro.models.attention import flash_attention as jflash
 from repro_torch.kernels.swa_attention import (launches, reset_launches,
                                                swa_attention,
                                                swa_attention_ref)
+from repro_torch.data.packing import PackedLMTask
 from repro_torch.kernels.swa_attention.kernel import swa_attention_cuda
-from repro_torch.models.attention import flash_attention
+from repro_torch.models.attention import cross_attention, flash_attention
 
 torch.set_num_threads(1)
 
@@ -112,16 +122,28 @@ def test_odd_sequence_and_single_key_window():
 
 
 def test_flash_attention_raises_for_unported_cases():
+    """Every case a block asks for runs (the dense kind at a window of S,
+    non-causal, cross-length, segments); the cases none asks for are
+    refused on the CPU as on the card."""
     q, k, v = _torch(_inputs(1, 8, 2, 2, 8, 0), "float32")
-    # full causal attention (the dense kind) is ported: a window of S
+    # full causal attention (the dense kind): a window of S
     assert torch.equal(flash_attention(q, k, v, causal=True, window=None),
                        swa_attention(q, k, v, 8))
-    cases = [(dict(causal=False, window=4), "A7\\(d\\)"),
-             (dict(causal=True, window=4, segments=torch.ones(1, 8)),
-              "A7\\(e\\)")]
-    for kw, item in cases:
-        with pytest.raises(NotImplementedError, match=item):
-            flash_attention(q, k, v, **kw)
+    seg = torch.ones((1, 8), dtype=torch.int32)
+    assert flash_attention(q, k, v, causal=False).shape == q.shape
+    assert flash_attention(q, k[:, :5], v[:, :5], causal=False).shape == \
+        q.shape
+    assert flash_attention(q, k, v, window=4, segments=seg).shape == q.shape
+    cases = [(dict(causal=False, window=4), (k, v), "window"),
+             (dict(causal=True), (k[:, :5], v[:, :5]), "as many keys"),
+             (dict(segments=seg[:, :5]), (k, v), "segments"),
+             (dict(causal=False, segments=seg), (torch.cat([k, k], 1),
+                                                 torch.cat([v, v], 1)),
+              "segments"),
+             (dict(window=0), (k, v), "at least 1")]
+    for kw, (kk, vv), what in cases:
+        with pytest.raises(ValueError, match=what):
+            flash_attention(q, kk, vv, **kw)
 
 
 def test_cpu_tensors_take_the_plain_version():
@@ -134,3 +156,103 @@ def test_cpu_tensors_take_the_plain_version():
     assert torch.equal(out, ref)
     with pytest.raises(ValueError, match="CUDA"):
         swa_attention_cuda(q, k, v, 4)
+
+
+# ---------------------------------------------------------------------------
+# the enc-dec and packed-sequence masks against the JAX flash_attention
+# ---------------------------------------------------------------------------
+MASK_TOL = {"float32": dict(rtol=1e-5, atol=1e-6),
+            "bfloat16": dict(rtol=5e-2, atol=5e-2)}
+
+
+def _segments(b, s, seed):
+    """The segment ids of a ``PackedLMTask`` batch: documents of mean
+    length s/4 and padding (0) at the end of some rows."""
+    seg = PackedLMTask(seq_len=s, batch_size=b, mean_doc_len=max(s // 4, 4),
+                       seed=seed).batch(0, seed).segments
+    assert (seg == 0).any() and (seg > 1).any()
+    return seg
+
+
+def _mask_case(b, s, t, h, kh, hd, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(shape).astype(np.float32)
+            for shape in ((b, s, h, hd), (b, t, kh, hd), (b, t, kh, hd))]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s,t,h,kh", [(64, 64, 4, 4), (48, 80, 4, 2),
+                                      (96, 40, 4, 1), (256, 512, 2, 2)])
+def test_non_causal_and_cross_length_match_jax_flash_attention(s, t, h, kh,
+                                                               dtype):
+    """The encoder's non-causal self-attention (T == S) and cross
+    attention over T != S keys, GQA included."""
+    arrs = _mask_case(2, s, t, h, kh, 32, s + t)
+    ref = jflash(*_jax(arrs, dtype), causal=False, window=None)
+    out = flash_attention(*_torch(arrs, dtype), causal=False)
+    assert out.shape == (2, s, h, 32) and out.dtype == TORCH_DT[dtype]
+    np.testing.assert_allclose(_np(out), _np(ref), **MASK_TOL[dtype])
+    assert torch.equal(cross_attention(*_torch(arrs, dtype)), out)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s,h,kh,window", [(64, 4, 2, None), (128, 2, 2, 16),
+                                           (256, 4, 1, None)])
+def test_segments_match_jax_flash_attention_padding_rows_included(
+        s, h, kh, window, dtype):
+    arrs = _mask_case(3, s, s, h, kh, 32, s + 7)
+    seg = _segments(3, s, s)
+    ref = jflash(*_jax(arrs, dtype), causal=True, window=window,
+                 segments=jnp.asarray(seg))
+    out = flash_attention(*_torch(arrs, dtype), window=window,
+                          segments=torch.from_numpy(seg))
+    np.testing.assert_allclose(_np(out), _np(ref), **MASK_TOL[dtype])
+    # a padding row attends nowhere: every score is -1e30, each of the T
+    # keys gets p = 1, and the row is the mean of V over them
+    pad = seg == 0
+    vmean = np.repeat(arrs[2].mean(axis=1, keepdims=True), h // kh, axis=2)
+    got = _np(out)[pad]
+    np.testing.assert_allclose(got, np.broadcast_to(
+        vmean, (3, s, h, 32))[pad], **MASK_TOL[dtype])
+
+
+def test_segments_confine_each_document():
+    """A document's outputs do not depend on the other documents of its
+    row: two rows packing the same document after different ones agree
+    on it."""
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 24, 2, 16))
+                                .astype(np.float32)) for _ in range(3))
+    for x in (q, k, v):
+        x[1, 10:] = x[0, 10:]             # the same last document
+    seg = torch.tensor([[1] * 10 + [2] * 14, [1] * 4 + [2] * 6 + [3] * 14],
+                       dtype=torch.int32)
+    out = flash_attention(q, k, v, segments=seg)
+    torch.testing.assert_close(out[0, 10:], out[1, 10:], rtol=1e-6,
+                               atol=1e-6)
+    non_causal = swa_attention(q, k, v, causal=False, segments=seg)
+    torch.testing.assert_close(non_causal[0, 10:], non_causal[1, 10:],
+                               rtol=1e-6, atol=1e-6)
+
+
+def test_ragged_key_tiles_and_plain_gradients_take_masks():
+    """T past every block size, and the plain version's autograd (the
+    card's backward) through non-causal and segment masks: finite, and
+    no gradient reaches keys of another document."""
+    rng = np.random.default_rng(9)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).requires_grad_(True)
+        for shape in ((1, 30, 2, 8), (1, 30, 2, 8), (1, 30, 2, 8)))
+    seg = torch.tensor([[1] * 12 + [2] * 15 + [0] * 3], dtype=torch.int32)
+    out = swa_attention(q, k, v, segments=seg)
+    out[:, :12].sum().backward()
+    assert torch.isfinite(k.grad).all() and torch.isfinite(q.grad).all()
+    assert float(k.grad[:, 12:].abs().max()) == 0.0
+    assert float(v.grad[:, 12:].abs().max()) == 0.0
+    kc, vc = (torch.from_numpy(rng.standard_normal((1, 1001, 2, 8)).astype(
+        np.float32)) for _ in range(2))
+    qc = q.detach()
+    jout = jflash(*_jax([qc.numpy(), kc.numpy(), vc.numpy()], "float32"),
+                  causal=False, window=None, q_chunk=30, kv_chunk=1001)
+    np.testing.assert_allclose(_np(swa_attention(qc, kc, vc, causal=False)),
+                               _np(jout), **MASK_TOL["float32"])

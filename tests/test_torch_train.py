@@ -273,10 +273,16 @@ def test_attn_kind_bf16_matches_jax_bf16(weights):
 
 
 def test_unsupported_attention_kinds_still_raise():
-    for kind in ("attn_bidir", "attn_cross"):
-        with pytest.raises(NotImplementedError, match="A7"):
-            blocks.init_block(torch.Generator(), get_config("qwen2-1.5b"),
-                              kind, "cpu")
+    """The enc-dec kinds, which raised here naming A7 until they were
+    ported (test_torch_encdec.py), build with the JAX package's leaves;
+    a kind no config names still raises."""
+    cfg = get_config("qwen2-1.5b").reduced()
+    for kind, extra in (("attn_bidir", set()), ("attn_cross",
+                                                {"lnx", "xattn"})):
+        p = blocks.init_block(torch.Generator(), cfg, kind, "cpu")
+        assert set(p) == {"ln1", "attn", "ln2", "mlp"} | extra
+    with pytest.raises(ValueError, match="attn_sparse"):
+        blocks.init_block(torch.Generator(), cfg, "attn_sparse", "cpu")
 
 
 # ---------------------------------------------------------------------------
