@@ -302,13 +302,17 @@ Phases (one JSON line each):
               (1, 512, ..., T = 4096); qwen2-1.5b (4, 512, 12, 2, 128)
               causal with a PackedLMTask batch's segments, padding rows
               included (each the mean of V over every key); bf16 and f32
-              against the plain version, the bf16 call timed beside SDPA
-              (is_causal=False; with segments a boolean causal-and-
-              segment mask) with device times and the bound
+              against the plain version (bf16 also within 6e-3 relative
+              L2, which planted faults must exceed: a dropped kv tile,
+              keys past T counted, segments ignored), the bf16 call
+              timed beside SDPA (is_causal=False; with segments a
+              boolean causal-and-segment mask) with device times and
+              the bound
   lm_grad     (also) seamless reduced with its encoder in float32 on both
-              sides (held to 1e-4) and in bfloat16 as it runs (recorded:
-              the card's tensor-core encoder and the CPU's plain one
-              round apart), and qwen2 reduced on a packed batch
+              sides (held to 1e-4) and in bfloat16 as it runs (held to
+              5e-2: the card's tensor-core encoder and the CPU's plain
+              one round apart; a causal encoder must read past it), and
+              qwen2 reduced on a packed batch
   serve_generate_seamless
               seamless-m4t-large-v2 at full width and depth in bf16
               (4.07 GB): generate (batch 4, prompt 512, zero frames of
@@ -325,7 +329,9 @@ Phases (one JSON line each):
               (8 x 512): one pod's loss and gradient, 2 pod-round steps
               (finite, v0 == sum_p v_p), and a row's second document's
               logits against the document alone (float32 within 3e-2,
-              JAX tests/test_packing.py's tolerance; bf16 recorded)
+              JAX tests/test_packing.py's tolerance; bf16 within 0.3),
+              and the same row without its segments (a cross-document
+              leak) past both limits
 Every path runs with the launch counts set to 0 just before it and read
 just after; a path that did not launch its kernels fails (a process
 backend's children count in their own processes and ship their counts
@@ -430,6 +436,15 @@ SWA_SRC = "src/repro_torch/kernels/swa_attention/csrc/swa_attention.cu"
 # swa_attention: the JAX package's kernel tolerances (tests/test_kernels.py)
 SWA_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
            torch.bfloat16: dict(rtol=3e-2, atol=3e-2)}
+# B7's bf16 kernel at the enc-dec and packed shapes, relative L2 of its
+# output against the plain version's: SWA_TOL's 3e-2 is as large as an
+# output at T = 4096 (std 0.026), so the check also holds this, set
+# between the sound readings (P rounded to bf16 before PV; on an H100:
+# 1.7e-3 to 2.5e-3) and the planted faults of ``swa_mask_controls``
+# (1.4e-2 for the keys past T counted at T = 1000, 0.13-0.89 for a
+# dropped kv tile or a cross-document leak)
+SWA_BF16_REL_L2 = 6e-3
+SWA_KV_TILE = 64             # keys a kv tile of the bf16 kernel
 
 
 def emit(obj):
@@ -2267,13 +2282,33 @@ def lm_grads(model, params0, batch, w, device):
 
 # the enc-dec family and packed sequences: seamless reduced with its
 # encoder in float32 on both sides (held to LM_GRAD_TOL) and in bfloat16
-# as the model runs it (recorded, not held: the card's tensor-core
-# encoder and the CPU's plain bfloat16 one round apart, as two bfloat16
-# encoders do in tests/test_torch_encdec.py); qwen2 reduced on a
-# PackedLMTask batch (segments with padding rows, restarting positions)
+# as the model runs it (the card's tensor-core encoder and the CPU's
+# plain bfloat16 one round apart, as two bfloat16 encoders do in
+# tests/test_torch_encdec.py: held to LM_GRAD_BF16_ENCODER_TOL, set
+# between the sound reading, 1.9e-2 on the H100, and a planted fault,
+# the encoder made causal (1.53), which must exceed it); qwen2 reduced on a PackedLMTask
+# batch (segments with padding rows, restarting positions)
+LM_GRAD_BF16_ENCODER_TOL = 5e-2
 LM_GRAD_VARIANTS = [("seamless-m4t-large-v2-reduced", 2, 128, "f32_encoder"),
                     ("seamless-m4t-large-v2-reduced", 2, 128, "bf16_encoder"),
                     ("qwen2-1.5b-reduced", 2, 128, "packed")]
+
+
+def encode_variant(dtype, kind):
+    """The model's ``lm._encode`` with its frames cast to ``dtype`` and
+    its layers run as ``kind`` blocks: float32 ``attn_bidir`` takes the
+    encoder's bfloat16 rounding out of a comparison, bfloat16 ``attn``
+    (causal) is a planted mask fault."""
+    from repro_torch.models import lm
+
+    def encode(params, cfg, enc_embeds):
+        x = enc_embeds.to(dtype)
+        ctx = {"positions": lm._default_positions(
+            cfg, x.shape[0], x.shape[1], device=x.device)}
+        x, _, _ = lm._unit_loop(params["encoder"]["unit"], x, cfg, ctx,
+                                kinds=(kind,), repeats=cfg.encoder_layers)
+        return lm.rms_norm(x, params["encoder"]["final_norm"])
+    return encode
 
 
 def lm_grad_case(arch, batch, seq, variant=None):
@@ -2283,8 +2318,9 @@ def lm_grad_case(arch, batch, seq, variant=None):
     frames; a ``PackedLMTask`` batch for ``packed``) and W from numpy;
     the card's forward and backward of sum(logits * W) + aux with the
     launch counts set to 0 just before, then the CPU's.  Every leaf's
-    gradient must be finite and, but for the bf16 encoder, within
-    LM_GRAD_TOL (relative L2) of the CPU's; each kernel launched once a
+    gradient must be finite and within LM_GRAD_TOL (relative L2) of the
+    CPU's (the bf16 encoder: LM_GRAD_BF16_ENCODER_TOL, which the CPU's
+    gradient with a causal encoder must exceed); each kernel launched once a
     prologue layer and twice a unit (and an encoder) layer (the forward
     checkpoints each repeat: the forward and the backward's
     recompute)."""
@@ -2310,9 +2346,9 @@ def lm_grad_case(arch, batch, seq, variant=None):
         inputs = model.make_batch(seq, batch, seed=4, device="cpu")
     w = torch.as_tensor(rng.standard_normal(
         (batch, seq, cfg.vocab_size)).astype(np.float32))
-    real_enc = lm.ENCODER_DTYPE
+    real_encode = lm._encode
     if variant == "f32_encoder":
-        lm.ENCODER_DTYPE = torch.float32
+        lm._encode = encode_variant(torch.float32, "attn_bidir")
     try:
         reset_launches()
         t0 = time.perf_counter()
@@ -2322,7 +2358,7 @@ def lm_grad_case(arch, batch, seq, variant=None):
         counts = launches()
         g_cpu, logits_cpu = lm_grads(model, params0, inputs, w, "cpu")
     finally:
-        lm.ENCODER_DTYPE = real_enc
+        lm._encode = real_encode
     rel = []
     for a, b in zip(g_card, g_cpu):
         if a is None or b is None or not bool(torch.isfinite(a).all()):
@@ -2332,7 +2368,8 @@ def lm_grad_case(arch, batch, seq, variant=None):
     logit_rel = float((logits_card.cpu() - logits_cpu).norm()
                       / logits_cpu.norm())
     expected = kernel_counts(cfg, 1)
-    held = variant != "bf16_encoder"
+    tol = LM_GRAD_BF16_ENCODER_TOL if variant == "bf16_encoder" else \
+        LM_GRAD_TOL
     rec = {"phase": "lm_grad", "arch": arch, "dtype": "float32",
            "batch": batch, "tokens": seq, "leaves": len(rel),
            "params": sum(l.numel() for l in tree_leaves(params0)),
@@ -2341,15 +2378,26 @@ def lm_grad_case(arch, batch, seq, variant=None):
            **{f"expected_{k}_launches": n for k, n in expected.items()},
            "logits_rel_l2": logit_rel, "grad_rel_l2_max": max(rel),
            "grad_rel_l2_median": float(np.median(rel)),
-           "tolerance_rel_l2": LM_GRAD_TOL if held else None}
+           "tolerance_rel_l2": tol}
     if variant:
         rec["variant"] = variant
+    if variant == "bf16_encoder":
+        lm._encode = encode_variant(torch.bfloat16, "attn")
+        try:
+            g_fault, _ = lm_grads(model, params0, inputs, w, "cpu")
+        finally:
+            lm._encode = real_encode
+        rec["causal_encoder_grad_rel_l2_max"] = max(
+            float((a - b).norm() / b.norm()) for a, b in zip(g_fault, g_cpu))
     if variant == "packed":
         rec["padding_tokens"] = int((inputs["segments"] == 0).sum())
         rec["documents"] = int(inputs["segments"].max(1).values.sum())
     emit(rec)
     check_counts(f"lm_grad {arch}", counts, expected)
-    if held and max(rel) > LM_GRAD_TOL:
+    if rec.get("causal_encoder_grad_rel_l2_max", np.inf) <= tol:
+        raise AssertionError(f"lm_grad {arch}: a causal encoder's gradient "
+                             f"is within {tol} of the sound one")
+    if max(rel) > tol:
         raise AssertionError(f"lm_grad {arch}: a leaf's gradient is "
                              f"{max(rel)} (relative L2) from the CPU's")
     return rec
@@ -3244,6 +3292,10 @@ PACKED_BATCH, PACKED_SEQ, PACKED_STEPS = 8, 512, 2
 # JAX tests/test_packing.py's tolerance: a packed document's logits
 # against the document alone
 PACKED_TOL = dict(rtol=3e-2, atol=3e-2)
+# bf16: the largest |d| of those logits, set between the sound readings
+# (0.105-0.115 on the H100) and the leak of the row run without its
+# segments (8.08; 8.09 in float32)
+PACKED_BF16_TOL = 0.3
 
 
 def packed_segments(b, s, vocab, seed=0):
@@ -3271,9 +3323,34 @@ def mask_pairs(segments, b, s, t, causal):
     return valid, pad
 
 
+def swa_mask_controls(q, k, v, causal, segments):
+    """Planted faults of B7, made with its plain version on a check's
+    inputs: with segments, the segments ignored (attention crosses the
+    documents); without, the middle kv tile of SWA_KV_TILE keys dropped
+    and, for T no multiple of the tile, the zero keys that fill the last
+    tile counted as keys."""
+    from repro_torch.kernels.swa_attention import swa_attention_gqa
+    if segments is not None:
+        return {"segments_ignored": swa_attention_gqa(q, k, v, None,
+                                                      causal, None)}
+    t = k.shape[1]
+    t0 = t // 2 // SWA_KV_TILE * SWA_KV_TILE
+    kd, vd = (torch.cat([x[:, :t0], x[:, t0 + SWA_KV_TILE:]], 1)
+              for x in (k, v))
+    out = {"kv_tile_dropped": swa_attention_gqa(q, kd, vd, None, causal)}
+    if t % SWA_KV_TILE:
+        zeros = k.new_zeros(k.shape[0], -t % SWA_KV_TILE, *k.shape[2:])
+        out["keys_past_t_counted"] = swa_attention_gqa(
+            q, torch.cat([k, zeros], 1), torch.cat([v, zeros], 1), None,
+            causal)
+    return out
+
+
 def check_swa_mask(card, label, b, s, t, h, kh, hd, causal, seg, seed):
     """B7 with a mask of the enc-dec family or packed sequences: bf16 and
-    f32 against the plain version (SWA_TOL), the bf16 call timed beside
+    f32 against the plain version (SWA_TOL; bf16 also SWA_BF16_REL_L2,
+    which each planted fault of ``swa_mask_controls`` must exceed), the
+    bf16 call timed beside
     the plain version and SDPA (``is_causal=False`` without segments;
     a boolean (B, 1, S, S) mask of causal and segment pairs with them,
     K/V repeated to H), with device times and the bound: bytes (q, k, v
@@ -3302,6 +3379,22 @@ def check_swa_mask(card, label, b, s, t, h, kh, hd, causal, seg, seed):
             "max_abs_err_f32"
         rec[key] = max_err(out.float(), ref.float(), SWA_TOL[dtype],
                            f"swa_attention {label} {dtype}")
+        rel = rel_l2([out.float()], [ref.float()])
+        rec[key.replace("max_abs_err", "rel_l2")] = rel
+        if dtype == torch.bfloat16:
+            faults = {name: rel_l2([c.float()], [ref.float()])
+                      for name, c in swa_mask_controls(
+                          q, k, v, causal, segments).items()}
+            rec.update(rel_l2_limit=SWA_BF16_REL_L2,
+                       planted_faults_rel_l2=faults)
+            if rel > SWA_BF16_REL_L2:
+                raise AssertionError(
+                    f"swa_attention {label} bf16: relative L2 {rel} from "
+                    f"the plain version, limit {SWA_BF16_REL_L2}")
+            if min(faults.values()) <= SWA_BF16_REL_L2:
+                raise AssertionError(
+                    f"swa_attention {label} bf16: a planted fault is within "
+                    f"the limit {SWA_BF16_REL_L2}: {faults}")
         if seg:
             pad = segments == 0
             mean = v.float().mean(1, keepdim=True).repeat_interleave(
@@ -3668,9 +3761,10 @@ def phase_packed_qwen2():
     for bit, twice a layer a pod a step); (3) document isolation on the
     stepped parameters: the longest second document of a row, its logits
     in the packed forward against the document run alone, in float32
-    within
-    PACKED_TOL (JAX tests/test_packing.py's tolerance; one swa_attention
-    a layer a forward) and in bf16 (recorded)."""
+    within PACKED_TOL (JAX tests/test_packing.py's tolerance) and in bf16
+    within PACKED_BF16_TOL (largest |d|); the row run without its
+    segments (attention crosses into the first document) must be past
+    both (one swa_attention a layer a forward)."""
     from repro_torch.configs import get_config
     from repro_torch.core.types import tree_flatten, tree_leaves, \
         tree_unflatten
@@ -3741,25 +3835,30 @@ def phase_packed_qwen2():
     lo, hi = int(where[0]), int(where[-1]) + 1
     one = {k: v[r:r + 1] for k, v in batch.items() if k != "loss_mask"}
     alone = {"tokens": batch["tokens"][r:r + 1, lo:hi]}
+    leaky = {k: v for k, v in one.items() if k != "segments"}
     reset_launches()
-    gaps = {}
+    gaps, leaks = {}, {}
     with torch.no_grad():
         for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).replace("torch.", "")
             m = build_model(cfg, dtype)
-            packed, _ = m.forward(theta, one)
-            solo, _ = m.forward(theta, alone)
-            d = (packed[0, lo:hi].float() - solo[0].float()).abs()
-            gaps[str(dtype).replace("torch.", "")] = float(d.max())
+            solo = m.forward(theta, alone)[0][0].float()
+            packed = m.forward(theta, one)[0][0, lo:hi].float()
+            leak = m.forward(theta, leaky)[0][0, lo:hi].float()
+            gaps[name] = float((packed - solo).abs().max())
+            leaks[name] = float((leak - solo).abs().max())
             if dtype == torch.float32:
-                max_err(packed[0, lo:hi].float(), solo[0].float(),
-                        PACKED_TOL, "packed_qwen2 document isolation")
-            del packed, solo
+                max_err(packed, solo, PACKED_TOL,
+                        "packed_qwen2 document isolation")
+            del solo, packed, leak
     iso_counts = launches()
     check_counts("packed_qwen2 isolation", iso_counts,
-                 {"swa_attention": 4 * cfg.num_layers})
+                 {"swa_attention": 6 * cfg.num_layers})
     rec.update(second_document={"row": r, "span": [lo, hi]},
                isolation_max_abs_err=gaps,
-               isolation_tolerance=PACKED_TOL,
+               isolation_tolerance={"float32": PACKED_TOL,
+                                    "bfloat16": PACKED_BF16_TOL},
+               segments_ignored_max_abs_err=leaks,
                launches={"gradient": grad_counts["swa_attention"],
                          "steps": step_counts["swa_attention"],
                          "isolation": iso_counts["swa_attention"]},
@@ -3773,6 +3872,13 @@ def phase_packed_qwen2():
     if not rec["v0_is_sum_of_pod_momenta_bit_for_bit"]:
         raise AssertionError("packed_qwen2: v0 is not the sum of the pods' "
                              "momenta")
+    if gaps["bfloat16"] > PACKED_BF16_TOL:
+        raise AssertionError(f"packed_qwen2: bf16 document isolation "
+                             f"{gaps['bfloat16']} past {PACKED_BF16_TOL}")
+    limits = {"float32": PACKED_TOL["atol"], "bfloat16": PACKED_BF16_TOL}
+    if any(leaks[k] <= limits[k] for k in limits):
+        raise AssertionError(f"packed_qwen2: the row without its segments "
+                             f"is within the isolation limits: {leaks}")
     return rec
 
 

@@ -35,8 +35,9 @@ launched through the C entry point (the wrapper picks one by B*D).
 ``rglru_scan`` at prefill (4, 512, 4096), the long prompt (1, 3072,
 4096) and decode (4, 1, 4096), the decode call in turns with
 ``torch.addcmul``; ``gap_update`` at k=1 and k=8 (R=197,000, N=64), its
-device time a call.  One JSON line per section; exits 2 without a
-card.
+device time a call; the bf16 ``swa_attention`` kernel at its causal
+serve and train shapes (``SWA_CAUSAL_SHAPES``).  One JSON line per
+section; exits 2 without a card.
 
 ``--src DIR`` times the wrappers of another checkout's ``src`` (an
 earlier commit's, unpacked with ``git archive``) with this script's
@@ -255,6 +256,32 @@ def device_times(card):
         out["mamba_scan"].append(rec)
     out["rglru_scan"] = rglru_times(card)
     out["gap_update"] = gap_times(card)
+    out["swa_attention"] = swa_times()
+    return out
+
+
+# B7's causal shapes on the serve and train paths: recurrentgemma-9b's
+# prefill and long prompt (window 2048), qwen2-1.5b's training shape,
+# the four decoder-only families' prefills (dense: window = S); (B, S,
+# H, K, hd, window)
+SWA_CAUSAL_SHAPES = [(4, 512, 16, 1, 256, 2048), (1, 3072, 16, 1, 256, 2048),
+                     (4, 512, 12, 2, 128, 512), (4, 512, 32, 2, 128, 512),
+                     (4, 512, 24, 8, 64, 512), (4, 512, 40, 8, 128, 512),
+                     (4, 768, 28, 4, 128, 768)]
+
+
+def swa_times():
+    """The bf16 swa_attention kernel's device time at SWA_CAUSAL_SHAPES
+    (a checkout from before the enc-dec masks, through ``--src``, takes
+    the same call)."""
+    from repro_torch.kernels.swa_attention.kernel import swa_attention_cuda
+    out = {}
+    for b, s, h, kh, hd, w in SWA_CAUSAL_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(1)
+        q, k, v = (torch.randn(sh, device="cuda", generator=g).bfloat16()
+                   for sh in ((b, s, h, hd), (b, s, kh, hd), (b, s, kh, hd)))
+        out[f"{b},{s},{h},{kh},{hd},{w}"] = chip_smoke.device_ms(
+            lambda: swa_attention_cuda(q, k, v, w), "swa_attention")
     return out
 
 

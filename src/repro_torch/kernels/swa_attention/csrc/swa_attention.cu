@@ -17,12 +17,13 @@
 // segments[:, :T]).  softmax(q.k / sqrt(hd)) v, the output in the inputs'
 // type.  A masked score is -1e30, as in the JAX recurrence, so a row
 // masked against every key (a segment-0 padding row) gets p = 1 for
-// every key and the mean of V over all T keys; keys past T in a ragged
-// last tile score -inf and never count.  The TPU kernel ran a grid
-// (B*H, S/128) over K/V already repeated to H heads and visited the
-// band's kv blocks with a fori_loop.  Here a block owns a tile of
-// queries of one (batch, head) and visits only the kv tiles that meet
-// its band [q0 - window + 1, q_last] when causal, so the work is
+// every key and the mean of V over all T keys (with a window too: the
+// JAX windowed path averages only its band's chunks, ROADMAP C33); keys
+// past T in a ragged last tile score -inf and never count.  The TPU
+// kernel ran a grid (B*H, S/128) over K/V already repeated to H heads
+// and visited the band's kv blocks with a fori_loop.  Here a block owns
+// a tile of queries of one (batch, head) and visits only the kv tiles
+// that meet its band [q0 - window + 1, q_last] when causal, so the work is
 // O(S * window), not O(S^2); every kv tile when not causal, or when the
 // tile holds a padding row (the mean above needs every key: a cost paid
 // by the padding tiles only).  Any S, T >= 1 (the last tiles mask their

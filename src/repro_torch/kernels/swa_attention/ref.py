@@ -38,8 +38,9 @@ def swa_attention_ref(q, k, v, window=None, causal=True, segments=None):
     where ``segments[:, i] == segments[:, j] > 0`` (keys take
     ``segments[:, :T]``).  A masked score is -1e30, as in the JAX
     recurrence, so a row masked against every key (a segment-0 row)
-    takes the mean of V over all T keys.  float32 math, the output in
-    q's type."""
+    takes the mean of V over all T keys (with a window too, where the
+    JAX path averages only its band's kv chunks: ROADMAP C33).  float32
+    math, the output in q's type."""
     check_masks(q, k, window, causal, segments)
     s, t, hd = q.shape[1], k.shape[1], q.shape[-1]
     # the scalars are made on q's device (no host-to-device copy, which

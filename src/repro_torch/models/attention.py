@@ -10,7 +10,10 @@ causal attention (the ``attn`` kind) is the windowed function with a
 window of S; the encoder's ``attn_bidir`` and ``cross_attention`` (queries
 over the encoder's T frames) are its non-causal case; ``segments`` (B, S)
 confine each query to its own packed document, a segment-0 (padding) row
-taking the mean of V over every key, as the JAX recurrence gives it.
+taking the mean of V over every key, as the JAX recurrence gives it
+(with a window the JAX path averages only its band's kv chunks, so past
+the band its padding rows differ: ROADMAP C33; no target and no other
+row reads them).
 
 ``_project_qkv`` with ``x_kv`` (cross attention) casts the weights to the
 query side's type and computes K and V in the wider of the two types, as

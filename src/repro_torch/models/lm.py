@@ -197,16 +197,12 @@ def _unit_loop(params_unit, x, cfg: ArchConfig, ctx, collect_cache=False,
     return x, aux, ([_stack(cs) for cs in out] if collect_cache else None)
 
 
-# the encoder's type whatever the model's: the JAX package casts the
-# frames to bfloat16 (its lm.py:116)
-ENCODER_DTYPE = torch.bfloat16
-
-
 def _encode(params, cfg: ArchConfig, enc_embeds):
     """The bidirectional encoder over precomputed frame embeddings
-    (B, Se, d), in ``ENCODER_DTYPE``, positions 0..Se-1, no segments;
+    (B, Se, d), in bfloat16 whatever the model's type (the JAX package
+    casts the frames so, its lm.py:116), positions 0..Se-1, no segments;
     its final RMS norm applied."""
-    x = enc_embeds.to(ENCODER_DTYPE)
+    x = enc_embeds.to(torch.bfloat16)
     ctx = {"positions": _default_positions(cfg, x.shape[0], x.shape[1],
                                            device=x.device)}
     enc = params["encoder"]

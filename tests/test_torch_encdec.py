@@ -15,8 +15,8 @@ numpy seeds:
   0.02 apart): the bfloat16 encoder is held to 0.15, the bf16 tolerance
   of C8.  The float32 comparisons hold the rest of the model to float32
   tolerances with that rounding taken out, two ways: the encoders kept
-  in float32 on both sides (``lm.ENCODER_DTYPE`` and a float32 copy of
-  the JAX ``_encode``), and the JAX encoder's own bfloat16 output pinned
+  in float32 on both sides (float32 copies of the port's and the JAX
+  ``_encode``), and the JAX encoder's own bfloat16 output pinned
   into the port's decoder.  Then forward logits are within 1e-4, the
   loss within 1e-5 and every leaf's gradient (the encoder's included)
   within 1e-4 relative L2 of ``jax.grad``; the prefill within 1e-4, a
@@ -107,6 +107,17 @@ def _jencode_f32(params, cfg, enc_embeds):
     return jlm.rms_norm(x, params["encoder"]["final_norm"])
 
 
+def _encode_f32(params, cfg, enc_embeds):
+    """The port's ``lm._encode`` with the frames kept in float32."""
+    x = enc_embeds.float()
+    ctx = {"positions": lm._default_positions(cfg, x.shape[0], x.shape[1],
+                                              device=x.device)}
+    x, _, _ = lm._unit_loop(params["encoder"]["unit"], x, cfg, ctx,
+                            kinds=("attn_bidir",),
+                            repeats=cfg.encoder_layers)
+    return lm.rms_norm(x, params["encoder"]["final_norm"])
+
+
 @pytest.fixture(params=["f32_encoders", "jax_bf16_encoder_pinned"])
 def encoders(request, enc, monkeypatch):
     """Take the encoders' bfloat16 rounding out of a float32 comparison:
@@ -114,7 +125,7 @@ def encoders(request, enc, monkeypatch):
     the fixture's weights) fed to the port's decoder."""
     if request.param == "f32_encoders":
         monkeypatch.setattr(jlm, "_encode", _jencode_f32)
-        monkeypatch.setattr(lm, "ENCODER_DTYPE", torch.float32)
+        monkeypatch.setattr(lm, "_encode", _encode_f32)
         return
     jcfg, _, jp, _ = enc
     jenc = jax.jit(lambda e: jlm._encode(jp, jcfg, e))
@@ -228,7 +239,7 @@ def test_loss_and_gradients_match_jax_f32(enc, monkeypatch):
     in float32."""
     jcfg, cfg, jp, p = enc
     monkeypatch.setattr(jlm, "_encode", _jencode_f32)
-    monkeypatch.setattr(lm, "ENCODER_DTYPE", torch.float32)
+    monkeypatch.setattr(lm, "_encode", _encode_f32)
     jb, b = _batches(cfg, seed=2)
 
     def jloss(params, batch):

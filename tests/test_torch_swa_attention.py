@@ -24,7 +24,9 @@
   (cross attention, T above and below S), and causal attention with the
   segments of a ``PackedLMTask`` batch, padding rows included, whose
   output is the mean of V over every key (the JAX recurrence's value);
-  the same with windows and GQA, and at bfloat16 within 0.05.  What no
+  the same with windows and GQA, and at bfloat16 within 0.05.  Past the
+  JAX windowed path's band of kv chunks, its padding rows average the
+  band alone, and only they differ from the port's (ROADMAP C33).  What no
   block asks for is refused: causal attention with T != S, a window on
   non-causal attention, segments of another shape or with T > S.
 * CPU tensors take the plain version and launch nothing; the CUDA-only
@@ -214,6 +216,28 @@ def test_segments_match_jax_flash_attention_padding_rows_included(
     got = _np(out)[pad]
     np.testing.assert_allclose(got, np.broadcast_to(
         vmean, (3, s, h, 32))[pad], **MASK_TOL[dtype])
+
+
+def test_windowed_padding_rows_past_the_jax_band():
+    """At S past the JAX windowed path's band (window 128: 2 of the 3
+    kv chunks of 512 a query chunk), the real rows still match the JAX
+    ``flash_attention``; a padding row takes the mean of V over all T
+    keys (ROADMAP C33), where the JAX path averages its band's chunks
+    alone, so there the two differ."""
+    s, h, kh, hd, window = 1536, 2, 1, 16, 128
+    arrs = _mask_case(2, s, s, h, kh, hd, 11)
+    seg = _segments(2, s, 5)
+    ref = _np(jflash(*_jax(arrs, "float32"), causal=True, window=window,
+                     segments=jnp.asarray(seg)))
+    out = _np(flash_attention(*_torch(arrs, "float32"), window=window,
+                              segments=torch.from_numpy(seg)))
+    real, pad = seg > 0, seg == 0
+    assert pad[:, 1280:].any()            # in the last query chunks
+    np.testing.assert_allclose(out[real], ref[real], **MASK_TOL["float32"])
+    vmean = np.broadcast_to(np.repeat(arrs[2].mean(axis=1, keepdims=True),
+                                      h // kh, axis=2), (2, s, h, hd))
+    np.testing.assert_allclose(out[pad], vmean[pad], **MASK_TOL["float32"])
+    assert np.abs(ref[pad] - vmean[pad]).max() > 1e-2
 
 
 def test_segments_confine_each_document():
